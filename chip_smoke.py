@@ -50,14 +50,7 @@ def fail(msg):
 
 
 def main() -> int:
-    import argparse
-
     import torch
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--k", type=int, default=K_FULL,
-                    help="log2 of the circuit size of the full-size prove")
-    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -86,7 +79,7 @@ def main() -> int:
 
     phase2_kernels(torch)
     phase3_golden(torch, here)
-    main_path, shapes = phase4_full(torch, args.k, LAUNCHES, reset_launches)
+    main_path, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
     kernels = phase5_timing(torch, shapes, main_path)
     log(f"[done] {time.time() - t_start:.1f}s")
 

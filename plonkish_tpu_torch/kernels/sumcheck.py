@@ -33,9 +33,6 @@ from ..piop import tape as tape_mod
 from . import LAUNCHES
 from . import build
 
-MAX_REGS = 32
-MAX_LEAVES = 40
-MAX_DEGREE = 8
 ROUND_THREADS = 128
 ROUND_MAX_BLOCKS = 1056  # 8 blocks on each of the card's 132 SMs
 
@@ -110,11 +107,6 @@ def round_launch(round_fn, stream, stacked, instrs, consts, num_regs, out_reg,
     _check_state(stacked)
     dev = stacked.device
     t_count, rows, _ = stacked.shape
-    if num_regs > MAX_REGS or degree > MAX_DEGREE or t_count + 1 > MAX_LEAVES:
-        raise ValueError(
-            f"tape too large for the round kernel: {num_regs} registers, "
-            f"degree {degree}, {t_count} tables"
-        )
     instrs_t = torch.as_tensor(np.ascontiguousarray(instrs, dtype=np.int32)).to(dev)
     consts = consts.to(dev).contiguous()
     ids = torch.stack([v.to(dev) for v in id_params]).contiguous()
@@ -126,6 +118,11 @@ def round_launch(round_fn, stream, stacked, instrs, consts, num_regs, out_reg,
                   instrs_t.shape[0], consts.data_ptr(), num_regs, out_reg, degree,
                   ids.data_ptr(), blocks, ROUND_THREADS, partial.data_ptr(),
                   out.data_ptr(), stream)
+    if rc == -1:
+        raise ValueError(
+            f"tape too large for the round kernel (SC_MAX_* in csrc/sumcheck.cu): "
+            f"{num_regs} registers, degree {degree}, {t_count} tables"
+        )
     if rc != 0:
         raise RuntimeError(f"sumcheck_round launch failed: CUDA error {rc}")
     LAUNCHES["sumcheck_round"] += 1

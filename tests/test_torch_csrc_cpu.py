@@ -173,6 +173,17 @@ def test_sumcheck_round_twin(twin, kind):
     assert torch.equal(got, want)
 
 
+def test_sumcheck_round_twin_rejects_large_tape(twin):
+    # the limits live in csrc/sumcheck.cu only; the wrapper reports them
+    tape = compile_tape(ex.Polynomial(Query(0, Rotation(0))), BN254_FR)
+    state = _state(1, 4, 10)
+    ids = identity_params(BN254_FR, 2, Fp(1, BN254_FR), "cpu")
+    with pytest.raises(ValueError, match="tape too large"):
+        ksc.round_launch(twin.twin_sumcheck_round, None, state, tape.instrs,
+                         tape.const_rows(BN254_FR, "cpu"), tape.num_regs,
+                         tape.out_reg, 9, ids)
+
+
 def test_sumcheck_fold_twin(twin):
     state = _state(3, 32, 11)
     ch = limb.const(BN254_FR, 987654321)

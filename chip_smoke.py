@@ -10,15 +10,23 @@ Phases, each printed on its own line; any failure exits non-zero:
 2. every kernel against its plain PyTorch version on the card, on the same
    inputs, exact equality required (MSM K1+K2 at 2^12 points with edge cases
    and at 2^16 random points, sum-check round K3 at 2^16 pairs for the
-   vanilla-PLONK expression and a degree-1 single-leaf one, fold K4);
+   vanilla-PLONK expression and a degree-1 single-leaf one, fold K4, the
+   mont_mul chain probe K5 with both multipliers at 2^16 elements);
 3. the three frozen KZG proofs of tests/golden produced on the card, byte for
    byte, and accepted by the port's verifier;
 4. HyperPlonk over BN254 with multilinear KZG on a random vanilla-PLONK
    circuit at k = 20: setup, preprocess, a warm-up prove, a timed prove with
    its span breakdown and kernel launch counts, verify, and a flipped byte
    rejected;
-5. each kernel timed with CUDA events at the shapes of the k = 20 prove,
-   beside its plain version and the least time the card could take.
+5. each kernel timed with CUDA events at the shapes of the k = 20 prove (K5
+   at 2^22 elements, 16 products deep, both multipliers), beside its plain
+   version and the least time the card could take; the operation and byte
+   counts are those of plonkish_tpu_torch/roofline.py, and the [peaks] line
+   says which multiply-add rate, measured by K5 or assumed, the bounds used;
+6. the bench harness in process (plonkish_tpu_torch.benchmark): the
+   zero_check and pcs systems at k = 20, whose rows are read back from
+   target/bench_torch/, with the launch counts of all five kernels on that
+   path.
 
 The last three lines of standard output are the kernels JSON line, the card
 as nvidia-smi reports it, and the result line.  The script imports no JAX
@@ -33,11 +41,7 @@ import sys
 import time
 
 K_FULL = 20
-IMAD_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 64 INT32 IMAD per SM and clock
-BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-FE_MUL_IMAD = 256  # 128 32x32->64-bit partial products, 2 IMAD each
-MADD_MULS = 11  # mixed Jacobian addition: 7M + 4S
-JADD_MULS = 16  # full Jacobian addition: 11M + 5S
+PROVER_KERNELS = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
 
 
 def log(msg):
@@ -60,6 +64,7 @@ def main() -> int:
         print("chip_smoke: the plonkish_tpu_torch package is missing", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    os.chdir(here)  # the harness writes its rows under ./target
     t_start = time.time()
 
     from plonkish_tpu_torch.kernels import LAUNCHES, build, reset_launches
@@ -81,6 +86,8 @@ def main() -> int:
     phase3_golden(torch, here)
     main_path, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
     kernels = phase5_timing(torch, shapes, main_path)
+    harness_path = phase6_harness(K_FULL, LAUNCHES, reset_launches)
+    kernels[-1]["launches"] = harness_path["mont_mul_chain"]
     log(f"[done] {time.time() - t_start:.1f}s")
 
     print(json.dumps({"kernels": kernels}))
@@ -107,6 +114,20 @@ def rand_field(torch, spec, n, gen, device="cuda"):
     raw[:, 7] %= spec.p >> 224
     raw = torch.where(raw >= 1 << 31, raw - (1 << 32), raw).to(torch.int32)
     return raw.to(device)
+
+
+def probe_inputs(torch, spec, n, gen):
+    """(a, b) for K5: random Montgomery elements with rows 0..7 set to 0, 1,
+    p - 1, R mod p, R^2 mod p, 2^255 - 19 reduced and two equal operands."""
+    from plonkish_tpu_torch.fields import limb
+
+    a, b = rand_field(torch, spec, n, gen), rand_field(torch, spec, n, gen)
+    r = (1 << 256) % spec.p
+    edge = [0, 1, spec.p - 1, r, r * r % spec.p, ((1 << 255) - 19) % spec.p]
+    a[: len(edge)] = limb.from_ints(edge, "cuda")
+    b[2] = a[2]
+    b[6:8] = a[6:8]
+    return a.contiguous(), b.contiguous()
 
 
 def cuda_ms(torch, fn, reps):
@@ -186,6 +207,7 @@ def phase2_kernels(torch):
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FR
     from plonkish_tpu_torch.kernels import msm as kmsm
+    from plonkish_tpu_torch.kernels import probe as kprobe
     from plonkish_tpu_torch.kernels import sumcheck as ksc
     from plonkish_tpu_torch.piop.sum_check import identity_params
     from plonkish_tpu_torch.piop.tape import compile_tape
@@ -238,6 +260,20 @@ def phase2_kernels(torch):
         fail("K4 sumcheck_fold differs from its plain version")
     log(f"[kernels] K4 fold, {state.stacked.shape[0]} tables x {state.stacked.shape[1]} rows: "
         "0 mismatches")
+
+    a, b = probe_inputs(torch, BN254_FR, 1 << 16, gen)
+    want = kprobe.mont_mul_chain_plain(BN254_FR, a, b, 16, "u32")
+    if not torch.equal(want, kprobe.mont_mul_chain_plain(BN254_FR, a, b, 16, "f32")):
+        fail("K5: the two plain multipliers disagree")
+    got = {v: kprobe.mont_mul_chain_cuda(BN254_FR, a, b, 16, v) for v in kprobe.VARIANTS}
+    torch.cuda.synchronize()
+    if not torch.equal(got["u32"], got["f32"]):
+        fail("K5 mont_mul_chain: variant u32 differs from variant f32")
+    for v in kprobe.VARIANTS:
+        if not torch.equal(got[v], want):
+            fail(f"K5 mont_mul_chain variant {v} differs from its plain version")
+    log(f"[kernels] K5 mont_mul chain, {a.shape[0]} elements with edge rows, 16 deep, "
+        "u32 and f32: 0 mismatches")
 
 
 # ------------------------------------------------------ 3 golden proofs
@@ -327,8 +363,8 @@ def phase4_full(torch, k, launches, reset_launches):
     top = sum(s for _, d, s in spans if d == 0)
     log(f"[k={k}] outside top-level spans: {(times['prove'] - top) * 1e3:.1f} ms")
     log(f"[k={k}] kernel launches in the timed prove: {json.dumps(main_path)}")
-    for name, count in main_path.items():
-        if count <= 0:
+    for name in PROVER_KERNELS:
+        if main_path[name] <= 0:
             fail(f"kernel {name} was not launched in the k={k} prove")
 
     t0 = time.time()
@@ -353,7 +389,9 @@ def phase5_timing(torch, shapes, main_path):
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.curves.specs import BN254_G1
     from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch import roofline
     from plonkish_tpu_torch.kernels import msm as kmsm
+    from plonkish_tpu_torch.kernels import probe as kprobe
     from plonkish_tpu_torch.kernels import sumcheck as ksc
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.piop.sum_check import identity_params
@@ -400,38 +438,109 @@ def phase5_timing(torch, shapes, main_path):
     n_mul = int((prover.instrs[:, 0] == OP_MUL).sum())
     log(f"[timing] round 0 state: {t_count} tables x 2^{k} rows, tape "
         f"{len(prover.instrs)} instructions ({n_mul} products), degree {state.degree}")
-
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / IMAD_PER_S, nbytes / BYTES_PER_S
-        return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    # K5: both multipliers over every launch shape at 2^22 elements, 16 deep.
+    # The sweep is the one the harness runs once per process; it is taken
+    # here outside that cache, so that phase 6 launches the probe itself.
+    sweep = roofline.probe_sweep("cuda")
+    peaks = roofline.peaks_from_sweep(sweep, "cuda")
+    for variant, per_thread, threads, ms in sweep:
+        log(f"[timing] mont_mul_chain {variant}, {per_thread} per thread, blocks of "
+            f"{threads}: {ms:.3f} ms")
+    pn, pchain = roofline.PROBE_N, roofline.PROBE_CHAIN
+    pa, pb = probe_inputs(torch, BN254_FR, pn, gen)
+    best = peaks["best"]["u32"]
+    k5_out = kprobe.mont_mul_chain_cuda(BN254_FR, pa, pb, pchain, "u32",
+                                        best["per_thread"], best["threads"])
+    k5_f32 = kprobe.mont_mul_chain_cuda(BN254_FR, pa, pb, pchain, "f32")
+    k5_plain_ms = cuda_ms(
+        torch, lambda: kprobe.mont_mul_chain_plain(BN254_FR, pa, pb, pchain, "u32"), 1)
+    k5_plain = kprobe.mont_mul_chain_plain(BN254_FR, pa, pb, pchain, "u32")
+    k5_err = 0 if torch.equal(k5_out, k5_plain) and torch.equal(k5_f32, k5_plain) else 1
+    k5_ms, k5_f32_ms = best["ms"], peaks["best"]["f32"]["ms"]
+    rate, source = roofline.imad_rate(peaks)
+    log(f"[peaks] {peaks['card']}: fe_mul {peaks['fe_mul_per_s'] / 1e9:.3f} G/s "
+        f"({best['per_thread']} per thread, blocks of {best['threads']}), fe_mul_f32 "
+        f"{peaks['fe_mul_f32_per_s'] / 1e9:.3f} G/s; multiply-adds measured "
+        f"{peaks['imad_per_s_measured'] / 1e12:.3f} T/s, assumed "
+        f"{peaks['imad_per_s_assumed'] / 1e12:.3f} T/s; bounds use the {source} rate "
+        f"({rate / 1e12:.3f} T/s) and {peaks['hbm_bytes_per_s'] / 1e12:.2f} TB/s; "
+        "K5's own bound uses the assumed rate; K5 is a compute rate (about 8x over "
+        "its byte bound)")
 
     rows_out = []
-    for name, source, replaces, ms, plain_ms, err, ops, nbytes in (
+    for name, source_file, replaces, ms, plain_ms, err, work in (
         ("msm_bucket_sums", "plonkish_tpu_torch/csrc/msm.cu",
          "plonkish_tpu/pallas/msm.py:46", k1_ms, k1_plain_ms, k1_err,
-         (m - unique) * MADD_MULS * FE_MUL_IMAD, n * 64 + m * 8 + unique * 96),
+         roofline.bucket_sums_work(n, m, unique)),
         ("msm_window_sums", "plonkish_tpu_torch/csrc/msm.cu",
          "plonkish_tpu/pallas/msm.py:119", k2_ms, k2_plain_ms, k2_err,
-         w * (nb - 1) * 2 * JADD_MULS * FE_MUL_IMAD, w * nb * 96 + w * 96),
+         roofline.window_sums_work(w, nb)),
         ("sumcheck_round", "plonkish_tpu_torch/csrc/sumcheck.cu",
          "plonkish_tpu/pallas/sumcheck.py:159", k3_ms, k3_plain_ms, k3_err,
-         pairs * (state.degree * n_mul + 1) * FE_MUL_IMAD, t_count * rows * 32),
+         roofline.round_work(t_count, pairs, state.degree, n_mul)),
         ("sumcheck_fold", "plonkish_tpu_torch/csrc/sumcheck.cu",
          "plonkish_tpu/pallas/sumcheck.py:225", k4_ms, k4_plain_ms, k4_err,
-         t_count * pairs * FE_MUL_IMAD, t_count * rows * 32 + t_count * pairs * 32),
+         roofline.fold_work(t_count, pairs)),
+        ("mont_mul_chain", "plonkish_tpu_torch/csrc/probe.cu",
+         "scripts/validate_pallas_tpu.py:253", k5_ms, k5_plain_ms, k5_err,
+         roofline.chain_work(pn, pchain)),
     ):
         if err:
             fail(f"{name} differs from its plain version at the k={k} shapes")
-        b_ms, b_by = bound(ops, nbytes)
+        # the probe cannot be its own bound: K5 is held to the assumed rate
+        own = name == "mont_mul_chain"
+        b_ms, b_by, b_src = roofline.bound_ms(*work, None if own else peaks)
         rows_out.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source_file, "replaces": replaces,
             "launches": main_path[name], "max_abs_err": 0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
         })
-        log(f"[timing] {name}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms "
-            f"by {b_by}), {main_path[name]} launches in the prove")
+        extra = f", f32 variant {k5_f32_ms:.3f} ms" if own else ""
+        log(f"[timing] {name}: {ms:.3f} ms{extra} (plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.3f} ms by {b_by} at the {b_src} rate), {main_path[name]} launches "
+            "in the prove")
     return rows_out
+
+
+# ------------------------------------------------------ 6 bench harness
+
+def phase6_harness(k, launches, reset_launches):
+    """The harness path at full width, in process: the zero_check and pcs
+    systems at k, one timed sample each after the harness's own warm-up."""
+    from plonkish_tpu_torch import benchmark
+
+    runs = (
+        ("zero_check", ["--system", "zero_check"], 2),
+        ("pcs_kzg", ["--system", "pcs", "--pcs", "kzg"], 3),
+    )
+    sizes = {}
+    for name, _, _ in runs:
+        path = os.path.join(benchmark.BENCH_DIR, name)
+        sizes[name] = os.path.getsize(path) if os.path.exists(path) else 0
+    reset_launches()
+    for name, argv, _ in runs:
+        t0 = time.time()
+        benchmark.main([*argv, "--k", f"{k}..{k + 1}", "--samples", "1"])
+        log(f"[harness] {name} k={k}: {time.time() - t0:.1f}s")
+    harness_path = dict(launches)
+    log(f"[harness] kernel launches on the harness path: {json.dumps(harness_path)}")
+    for name, _, columns in runs:
+        with open(os.path.join(benchmark.BENCH_DIR, name)) as fh:
+            fh.seek(sizes[name])
+            added = fh.read().splitlines()
+        if any(line.startswith("# FAILED") for line in added):
+            fail(f"the harness wrote a FAILED row to {name}: {added}")
+        rows = [line.split(",") for line in added if not line.startswith("#")]
+        if len(rows) != 1 or len(rows[0]) != columns or int(rows[0][0]) != k:
+            fail(f"the harness row of {name} at k={k} is missing: {added}")
+        if not all(float(v) > 0 for v in rows[0][1:]):
+            fail(f"the harness row of {name} holds no time: {added}")
+        log(f"[harness] {name} row: {','.join(rows[0])} ms")
+    for name, count in harness_path.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched on the harness path")
+    return harness_path
 
 
 if __name__ == "__main__":

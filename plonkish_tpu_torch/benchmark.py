@@ -1,0 +1,618 @@
+"""Proof-system benchmark harness (port of plonkish_tpu/benchmark.py).
+
+Usage:
+    python -m plonkish_tpu_torch.benchmark --system hyperplonk \
+        --circuit vanilla_plonk --k 8..12 [--device cuda|cpu] [--breakdown]
+
+Appends ``k, avg_ms`` lines to target/bench_torch/<system> (``k, commit_ms,
+open_ms`` for ``--system pcs``) and, with --breakdown, prints the per-phase
+cost aggregation from the timer trace and writes it beside the series as
+``<system>.breakdown.json`` (the plotter's input).
+
+Runs on the CUDA card unless ``--device cpu`` is given; without a card the
+default raises.  Every timed region ends in ``torch.cuda.synchronize()``.
+On the card the ``zero_check`` system prints the share of the roofline the
+prove reached, against the peaks that the ``mont_mul`` chain probe measures
+in the same process (``roofline.measure_peaks``).
+
+Systems: ``hyperplonk`` (a whole proof), ``zero_check`` (the sum-check prover
+alone over the composed vanilla-PLONK expression), ``pcs`` (commit and open of
+one polynomial).  The KZG SRS is cached under target/srs_cache_torch/;
+``--setup-only`` writes the zero-check tables of each k to
+target/setup_cache_torch/, and a later run of the same k reads them instead
+of synthesising the circuit again.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import pickle
+import random
+import signal
+import time
+
+BENCH_DIR = "target/bench_torch"
+SRS_CACHE_DIR = "target/srs_cache_torch"
+SETUP_CACHE_DIR = "target/setup_cache_torch"
+
+
+def _sample_size(k: int) -> int:
+    """proof_system.rs:321-329."""
+    if k < 16:
+        return 20
+    if k < 20:
+        return 5
+    return 1
+
+
+# A crash, an out-of-memory error or a SIGTERM in the middle of a k appends
+# an explicit `# FAILED k=<k>: <reason>` row to the series file.  The run
+# header is written lazily, together with the first row, so a SIGKILL (which
+# no handler sees) leaves no trace rather than a bare header.
+_FAIL_NOTE = {"path": None, "k": None, "header": None}
+
+
+def _append_series(path: str, text: str) -> None:
+    """Append a data or FAILED row, emitting the pending run header first."""
+    with open(path, "a") as f:
+        if _FAIL_NOTE["header"] is not None and path == _FAIL_NOTE["path"]:
+            f.write(_FAIL_NOTE["header"])
+            _FAIL_NOTE["header"] = None
+        f.write(text)
+
+
+def _fail_note(reason: str) -> None:
+    if _FAIL_NOTE["path"] is None:
+        return
+    # an allocator's message can run to kilobytes: first line only, capped
+    reason = reason.splitlines()[0][:200] if reason else reason
+    try:
+        _append_series(
+            _FAIL_NOTE["path"], f"# FAILED k={_FAIL_NOTE['k']}: {reason}\n"
+        )
+    except OSError:
+        pass
+
+
+def _arm_failure_notes(out_path: str) -> None:
+    _FAIL_NOTE["path"] = out_path
+
+    def _on_signal(signum, frame):
+        _fail_note(f"killed by {signal.Signals(signum).name} (timeout?)")
+        signal.signal(signum, signal.SIG_DFL)
+        os.kill(os.getpid(), signum)
+
+    for s in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(s, _on_signal)
+
+
+def main(argv=None) -> None:
+    try:
+        _main(argv)
+    except BaseException as e:  # noqa: BLE001 - note and re-raise
+        if not isinstance(e, SystemExit):
+            _fail_note(f"{type(e).__name__}: {e}")
+        raise
+
+
+def _prog(msg: str) -> None:
+    print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+def _main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument(
+        "--system", default="hyperplonk",
+        choices=["hyperplonk", "zero_check", "pcs"],
+    )
+    ap.add_argument(
+        "--circuit", default="vanilla_plonk",
+        choices=["vanilla_plonk", "vanilla_plonk_with_lookup"],
+    )
+    ap.add_argument("--k", default="8..10", help="range, e.g. 8..12")
+    ap.add_argument("--pcs", default="kzg", choices=["kzg"])
+    ap.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="cuda (the default) raises without a card; cpu runs every "
+        "kernel's plain version",
+    )
+    ap.add_argument("--samples", type=int, default=None)
+    ap.add_argument("--breakdown", action="store_true")
+    ap.add_argument(
+        "--setup-only", action="store_true",
+        help="zero_check: build the setup tables, write them to "
+        f"{SETUP_CACHE_DIR}/ and exit without proving",
+    )
+    ap.add_argument(
+        "--profile", metavar="DIR", default=None,
+        help="hyperplonk: trace one extra prove with torch.profiler, write "
+        "the Chrome trace to DIR and print the device-busy share",
+    )
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from . import resolve_device
+    from .utils import timer
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    on_card = device.type == "cuda"
+    if args.profile and not (on_card and args.system == "hyperplonk"):
+        ap.error("--profile traces a hyperplonk prove on the card")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    lo, hi = args.k.split("..")
+    ks = range(int(lo), int(hi))
+
+    os.makedirs(BENCH_DIR, exist_ok=True)
+    out_path = (
+        f"{BENCH_DIR}/pcs_{args.pcs}" if args.system == "pcs"
+        else f"{BENCH_DIR}/{args.system}"
+    )
+    # Each batch of rows is labelled; readers skip '#' lines and the last row
+    # per k wins.
+    if on_card:
+        from . import roofline
+
+        device_label = roofline.card_line()
+    else:
+        device_label = "cpu"
+    now = datetime.datetime.now(datetime.timezone.utc).isoformat(timespec="seconds")
+    _FAIL_NOTE["header"] = (
+        f"# run {now} circuit={args.circuit} pcs={args.pcs}"
+        f" device={device_label} k={args.k}\n"
+    )
+    _arm_failure_notes(out_path)
+    if args.breakdown:
+        timer.set_enabled(True)
+        timer.set_sync(sync if on_card else None)
+
+    if args.system == "zero_check":
+        _bench_zero_check(args, ks, device, sync, out_path)
+    elif args.system == "pcs":
+        _bench_pcs(args, ks, device, sync, out_path)
+    else:
+        _bench_hyperplonk(args, ks, device, sync, out_path)
+
+
+def _circuit_fn(name: str):
+    from .models.circuits import (
+        rand_vanilla_plonk_circuit,
+        rand_vanilla_plonk_with_lookup_circuit,
+    )
+
+    return {
+        "vanilla_plonk": rand_vanilla_plonk_circuit,
+        "vanilla_plonk_with_lookup": rand_vanilla_plonk_with_lookup_circuit,
+    }[name]
+
+
+def _make_pcs(name: str, device):
+    from .pcs.kzg import MultilinearKzg
+
+    assert name == "kzg"
+    return MultilinearKzg(device=device)
+
+
+# ---------------------------------------------------------------------------
+# zero_check: the sum-check prover alone
+# ---------------------------------------------------------------------------
+
+def zero_check_challenges(spec, k: int):
+    """(challenges [beta, gamma, alpha], y) of the zero-check bench at size k,
+    from the fixed seed 42."""
+    from .fields.host import Fp
+
+    rng = random.Random(42)
+    beta = Fp(rng.randrange(spec.p), spec)
+    gamma = Fp(rng.randrange(spec.p), spec)
+    alpha = Fp(rng.randrange(spec.p), spec)
+    y = [Fp(rng.randrange(spec.p), spec) for _ in range(k)]
+    return [beta, gamma, alpha], y
+
+
+def zero_check_tables(spec, k: int, circuit_fn, challenges, device):
+    """The composed zero-check expression of a random circuit with a VALID
+    assignment, and every polynomial it reads (instances, preprocessed,
+    witness, permutation, grand-product z) as Montgomery tensors on `device`:
+    the reference's zero_check criterion bench
+    (plonkish_backend/benches/zero_check.rs:18-42)."""
+    from .backend.hyperplonk.preprocessor import compose, permutation_polys
+    from .backend.hyperplonk.prover import instance_polys, permutation_z_polys
+    from .poly.multilinear import MLPoly
+
+    beta, gamma, _ = challenges
+    circuit_info, circuit = circuit_fn(spec, k, random.Random(42), random.Random(4242))
+    num_z, expression = compose(circuit_info)
+    perm_idx = circuit_info.permutation_polys()
+    inst = instance_polys(spec, k, circuit.instances(), device)
+    pre = [MLPoly.from_fps(spec, col, device) for col in circuit_info.preprocess_polys]
+    wit = [MLPoly.from_fps(spec, col, device) for col in circuit.synthesize(0, [])]
+    perm = permutation_polys(spec, k, perm_idx, circuit_info.permutations, device)
+    base_polys = inst + pre + wit
+    z = permutation_z_polys(num_z, list(zip(perm_idx, perm)), base_polys, beta, gamma)
+    return expression, [p.evals for p in base_polys + perm + z]
+
+
+def zero_check_prove(spec, k: int, expression, tables, challenges, y):
+    """One sum-check prove over the tables; returns the transcript."""
+    from .fields.host import Fp
+    from .piop.sum_check import ClassicSumCheck, VirtualPolynomial
+    from .poly.multilinear import MLPoly
+    from .utils.transcript import Keccak256Transcript
+
+    tr = Keccak256Transcript(spec)
+    polys = [MLPoly(spec, t) for t in tables]
+    ClassicSumCheck.evaluations().prove(
+        spec, k, VirtualPolynomial(expression, polys, challenges, [y]),
+        Fp.zero(spec), tr,
+    )
+    return tr
+
+
+def _bench_zero_check(args, ks, device, sync, out_path) -> None:
+    import torch
+
+    from . import roofline
+    from .fields.host import Fp
+    from .fields.spec import BN254_FR as spec
+    from .piop.sum_check import ClassicSumCheck
+    from .utils.transcript import Keccak256Transcript
+
+    assert args.circuit == "vanilla_plonk", "zero_check: vanilla only"
+    on_card = device.type == "cuda"
+    for k in ks:
+        _FAIL_NOTE["k"] = k
+        challenges, y = zero_check_challenges(spec, k)
+        samples = args.samples or _sample_size(k)
+
+        # The setup (circuit synthesis and digit conversion in Python) takes
+        # minutes at large k.  Everything cached is deterministic (the seeds
+        # are fixed above) and independent of the device.
+        setup_cache = f"{SETUP_CACHE_DIR}/zero_check_{args.circuit}_k{k}.pkl"
+        if os.path.exists(setup_cache) and not args.setup_only:
+            with open(setup_cache, "rb") as f:
+                blob = pickle.load(f)
+            expression = blob["expression"]
+            tables = [torch.from_numpy(t).to(device) for t in blob["tables"]]
+            print(f"k={k}: setup loaded from {setup_cache}", flush=True)
+        else:
+            expression, tables = zero_check_tables(
+                spec, k, _circuit_fn(args.circuit), challenges, device
+            )
+        if args.setup_only:
+            os.makedirs(SETUP_CACHE_DIR, exist_ok=True)
+            with open(setup_cache, "wb") as f:
+                pickle.dump(
+                    {"expression": expression,
+                     "tables": [t.cpu().numpy() for t in tables]},
+                    f, protocol=5,
+                )
+            print(f"k={k}: setup cached, skipping prove", flush=True)
+            continue
+        num_polys = len(tables)
+
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for sample in range(samples + 1):  # the first is an untimed warm-up
+            sync()
+            t0 = time.perf_counter()
+            tr = zero_check_prove(spec, k, expression, tables, challenges, y)
+            sync()
+            times.append(time.perf_counter() - t0)
+            if sample == 0:
+                # self-check: the message chain must verify (a kernel
+                # regression fails the bench loudly)
+                ClassicSumCheck.evaluations().verify(
+                    spec, k, expression.degree(), Fp.zero(spec),
+                    Keccak256Transcript.from_proof(spec, tr.into_proof()),
+                )
+        warm_ms = times[0] * 1e3
+        times = times[1:]
+        avg_ms = sum(times) / len(times) * 1e3
+        _append_series(out_path, f"{k}, {avg_ms:.3f}\n")
+
+        pct_s = ""
+        if on_card:
+            # share of the roofline: the multiply-adds and bytes of the whole
+            # k-round prove against the peaks the probe kernel measured
+            peaks = roofline.measure_peaks(device)
+            num_tables = roofline.sumcheck_num_tables(expression, num_polys)
+            secs = avg_ms / 1e3
+            mul_pct = roofline.roofline_pct(
+                roofline.sumcheck_mul_ops(spec, expression, k, num_tables, challenges),
+                secs, peaks,
+            )
+            hbm_pct = roofline.roofline_pct(
+                roofline.sumcheck_hbm_bytes(k, num_tables), secs, peaks,
+                kind="hbm_bytes",
+            )
+            peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+            pct_s = (
+                f", roofline {max(mul_pct, hbm_pct):.1f}% "
+                f"(mul {mul_pct:.1f}%, hbm {hbm_pct:.1f}%) against "
+                f"{roofline.imad_rate(peaks)[0] / 1e12:.2f} T multiply-adds/s "
+                f"({roofline.imad_rate(peaks)[1]}; fe_mul "
+                f"{peaks['fe_mul_per_s'] / 1e9:.2f} G/s, fe_mul_f32 "
+                f"{peaks['fe_mul_f32_per_s'] / 1e9:.2f} G/s measured), "
+                f"peak device memory {peak_gib:.2f} GiB"
+            )
+        print(
+            f"k={k} zero_check prove avg {avg_ms:.1f} ms "
+            f"(warm-up {warm_ms:.0f} ms){pct_s}", flush=True
+        )
+        del tables
+
+
+# ---------------------------------------------------------------------------
+# pcs: commit and open of one polynomial
+# ---------------------------------------------------------------------------
+
+def _bench_pcs(args, ks, device, sync, out_path) -> None:
+    """The reference's criterion pcs bench (plonkish_backend/benches/pcs.rs:26,
+    102-124: k = 16..21, commit and open timed separately)."""
+    from .fields.host import Fp
+    from .poly.multilinear import MLPoly
+    from .utils.transcript import Keccak256Transcript
+
+    pcs = _make_pcs(args.pcs, device)
+    spec = pcs.field_spec
+    warm = device.type == "cuda"
+    for k in ks:
+        _FAIL_NOTE["k"] = k
+        rng = random.Random(42)
+        n = 1 << k
+        _prog(f"k={k}: pcs setup (SRS)")
+        param = pcs.setup(n, 1, random.Random(0))
+        pp, vp = pcs.trim(param, n, 1)
+        poly = MLPoly.from_fps(
+            spec, [Fp(rng.randrange(spec.p), spec) for _ in range(n)], device
+        )
+        samples = args.samples or _sample_size(k)
+        commit_t, open_t = [], []
+        proof = None
+        for sample in range(samples + warm):
+            tr = Keccak256Transcript(spec)
+            sync()
+            t0 = time.perf_counter()
+            comm = pcs.commit_and_write(pp, poly, tr)
+            sync()
+            t1 = time.perf_counter()
+            point = tr.squeeze_challenges(k)
+            eval_ = poly.evaluate(point)
+            tr.write_field_element(eval_)
+            sync()
+            t2 = time.perf_counter()
+            pcs.open(pp, poly, comm, point, eval_, tr)
+            sync()
+            t3 = time.perf_counter()
+            commit_t.append(t1 - t0)
+            open_t.append(t3 - t2)
+            proof = tr.into_proof()
+        # self-check once per k: the proof must verify
+        r = Keccak256Transcript.from_proof(spec, proof)
+        comm_r = pcs.read_commitments(vp, 1, r)[0]
+        point_r = r.squeeze_challenges(k)
+        eval_r = r.read_field_element()
+        pcs.verify(vp, comm_r, point_r, eval_r, r)
+        if warm:  # the first sample was the warm-up
+            commit_t, open_t = commit_t[1:], open_t[1:]
+        commit_ms = sum(commit_t) / len(commit_t) * 1e3
+        open_ms = sum(open_t) / len(open_t) * 1e3
+        _append_series(out_path, f"{k}, {commit_ms:.3f}, {open_ms:.3f}\n")
+        print(
+            f"k={k} {args.pcs} commit {commit_ms:.1f} ms "
+            f"open {open_ms:.1f} ms (avg of {len(open_t)})",
+            flush=True,
+        )
+
+
+# ---------------------------------------------------------------------------
+# hyperplonk: a whole proof
+# ---------------------------------------------------------------------------
+
+def _bench_hyperplonk(args, ks, device, sync, out_path) -> None:
+    import torch
+
+    from .backend.hyperplonk import HyperPlonk
+    from .utils import timer
+    from .utils.transcript import Keccak256Transcript
+
+    circuit_fn = _circuit_fn(args.circuit)
+    on_card = device.type == "cuda"
+    for k in ks:
+        _FAIL_NOTE["k"] = k
+        pcs = _make_pcs(args.pcs, device)
+        spec = pcs.field_spec
+        _prog(f"k={k}: generating circuit ({args.circuit})")
+        circuit_info, circuit = circuit_fn(
+            spec, k, random.Random(42), random.Random(4242)
+        )
+        backend = HyperPlonk(pcs)
+        t0 = time.perf_counter()
+        _prog(f"k={k}: setup (SRS)")
+        param = _setup_cached(backend, circuit_info, k, args.pcs, device)
+        _prog(f"k={k}: preprocess")
+        pp, vp = backend.preprocess(param, circuit_info)
+        sync()
+        setup_s = time.perf_counter() - t0
+
+        samples = args.samples or _sample_size(k)
+        warm_s = None
+        if on_card:
+            _prog(f"k={k}: warm-up prove")
+            sync()
+            t0 = time.perf_counter()
+            backend.prove(pp, circuit, Keccak256Transcript(spec))
+            sync()
+            warm_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats(device)
+        timer.reset_trace()
+        prove_times = []
+        proof = None
+        for s in range(samples):
+            _prog(f"k={k}: prove sample {s + 1}/{samples}")
+            tr = Keccak256Transcript(spec)
+            sync()
+            t0 = time.perf_counter()
+            backend.prove(pp, circuit, tr)
+            sync()
+            prove_times.append(time.perf_counter() - t0)
+            proof = tr.into_proof()
+        peak_note = ""
+        if on_card:
+            peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+            peak_note = f", peak device memory {peak_gib:.2f} GiB"
+        # read the spans of the timed proves before anything else proves
+        breakdown = timer.cost_breakdown() if args.breakdown else None
+        if args.profile:
+            _profile_prove(args.profile, k, backend, pp, circuit, spec, device)
+
+        t0 = time.perf_counter()
+        backend.verify(
+            vp, circuit.instances(), Keccak256Transcript.from_proof(spec, proof)
+        )
+        verify_s = time.perf_counter() - t0
+
+        avg_ms = sum(prove_times) / len(prove_times) * 1e3
+        _append_series(out_path, f"{k}, {avg_ms:.3f}\n")
+        warm_note = f", warm-up {warm_s * 1e3:.0f} ms" if warm_s is not None else ""
+        print(
+            f"k={k} pcs={args.pcs} device={args.device}: "
+            f"prove {avg_ms:.1f} ms (avg of {samples}{warm_note}), "
+            f"setup+preprocess {setup_s * 1e3:.1f} ms, "
+            f"verify {verify_s * 1e3:.1f} ms, proof {len(proof)} B{peak_note}",
+            flush=True,
+        )
+        if args.breakdown:
+            print("  cost breakdown (per prove):")
+            breakdown_ms = {}
+            for cat, secs in breakdown.items():
+                breakdown_ms[cat] = secs / samples * 1e3
+                print(f"    {cat:14s} {secs / samples * 1e3:9.2f} ms")
+            _append_breakdown(out_path + ".breakdown.json", k, breakdown_ms)
+
+
+def _profile_prove(out_dir, k, backend, pp, circuit, spec, device) -> None:
+    """Trace one extra prove with torch.profiler (CPU and CUDA activity),
+    write the Chrome trace, and print the share of the traced window in
+    which the device ran a kernel or a copy and the ten operations with most
+    device time.  A trace without device events exits non-zero."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .utils.transcript import Keccak256Transcript
+
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        backend.prove(pp, circuit, Keccak256Transcript(spec))
+        torch.cuda.synchronize(device)
+        window_s = time.perf_counter() - t0
+    path = os.path.join(out_dir, f"hyperplonk_k{k}.trace.json")
+    prof.export_chrome_trace(path)
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    if not spans:
+        print(f"  torch.profiler trace {path} holds no device events", flush=True)
+        raise SystemExit(1)
+    busy_us, cur_lo, cur_hi = 0.0, *spans[0]
+    for lo, hi in spans[1:]:  # union of the device intervals
+        if lo > cur_hi:
+            busy_us += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    busy_us += cur_hi - cur_lo
+    print(
+        f"  torch.profiler trace written to {path}: {len(spans)} device events, "
+        f"device busy {busy_us / 1e3:.1f} ms of the {window_s * 1e3:.1f} ms "
+        f"traced prove ({100 * busy_us / 1e6 / window_s:.1f}%; the trace slows "
+        "the host)",
+        flush=True,
+    )
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
+                  reverse=True)
+    print("  top operations by device time:")
+    for e in rows[:10]:
+        if e.self_device_time_total <= 0:
+            break
+        print(f"    {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d} calls  "
+              f"{e.key[:90]}")
+
+
+def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
+    """Disk-cache the KZG SRS across bench runs.
+
+    setup is deterministic in (seed, size), `random.Random(seed)` drives the
+    trapdoor draw, so caching is sound; the fixed-base MSM that builds the SRS
+    runs in plain PyTorch and gates every measurement at large k."""
+    import numpy as np
+    import torch
+
+    from .curves.host import AffinePoint
+    from .curves.pairing import Fq2, G2Point
+    from .curves.specs import BN254_G1
+    from .fields.host import Fp
+    from .pcs.kzg import MultilinearKzgParams
+
+    assert pcs_name == "kzg"
+    path = f"{SRS_CACHE_DIR}/kzg_k{k}_seed{seed}.npz"
+    if os.path.exists(path):
+        with np.load(path) as z:
+            meta = json.loads(str(z["meta"]))
+            eqs = [torch.from_numpy(z[f"eq{i}"]).to(device)
+                   for i in range(meta["levels"])]
+        curve = BN254_G1
+        fq = curve.base
+
+        def pt(d):
+            return AffinePoint(curve, Fp(d[0], fq), Fp(d[1], fq))
+
+        def g2pt(d):
+            return G2Point(Fq2(d[0], d[1]), Fq2(d[2], d[3]))
+
+        return MultilinearKzgParams(
+            g1=pt(meta["g1"]), eqs=eqs, g2=g2pt(meta["g2"]),
+            ss=[g2pt(d) for d in meta["ss"]],
+        )
+    param = backend.setup(circuit_info, random.Random(seed))
+    os.makedirs(SRS_CACHE_DIR, exist_ok=True)
+    meta = {
+        "levels": len(param.eqs),
+        "g1": [int(param.g1.x), int(param.g1.y)],
+        "g2": [int(param.g2.x.a), int(param.g2.x.b),
+               int(param.g2.y.a), int(param.g2.y.b)],
+        "ss": [
+            [int(s.x.a), int(s.x.b), int(s.y.a), int(s.y.b)]
+            for s in param.ss
+        ],
+    }
+    arrays = {f"eq{i}": e.cpu().numpy() for i, e in enumerate(param.eqs)}
+    np.savez(path, meta=json.dumps(meta), **arrays)
+    return param
+
+
+def _append_breakdown(path: str, k: int, breakdown_ms) -> None:
+    """Persist per-k category costs for the plotter's stacked bars."""
+    data = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            data = json.load(f)
+    data[str(k)] = breakdown_ms
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -19,7 +19,7 @@ from .curves import device as cdev
 from .curves.host import AffinePoint
 from .curves.pairing import Fq2, G2Point
 from .curves.specs import BN254_G1, CurveSpec
-from .fields import limb
+from .fields import limb, soa
 from .fields.host import Fp
 
 
@@ -37,6 +37,24 @@ def limbs_to_digits(limbs: torch.Tensor) -> np.ndarray:
     out[..., 0::2] = v & np.uint32(0xFFFF)
     out[..., 1::2] = v >> np.uint32(16)
     return out
+
+
+def soa_from_reference(digits, device="cpu"):
+    """The reference's struct-of-arrays element, a list of 16 ``uint32`` digit
+    arrays (as numpy), -> (the port's list of 16 int64 digit tensors, the same
+    elements as int32[..., 8] limbs)."""
+    ds = [torch.from_numpy(np.asarray(d, dtype=np.uint32).astype(np.int64)).to(device)
+          for d in digits]
+    assert len(ds) == 16
+    return ds, soa.to_tensor(ds)
+
+
+def soa_to_reference(ds) -> List[np.ndarray]:
+    """The port's digit list, or its int32[..., 8] limbs, -> the reference's
+    list of 16 ``uint32`` digit arrays."""
+    if isinstance(ds, torch.Tensor):
+        ds = soa.from_tensor(ds)
+    return [d.detach().to("cpu").numpy().astype(np.uint32) for d in ds]
 
 
 def basis_from_reference(points, curve: CurveSpec = BN254_G1, device="cpu") -> torch.Tensor:

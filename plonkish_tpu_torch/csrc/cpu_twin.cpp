@@ -1,11 +1,13 @@
 // Host build of the kernels' arithmetic and per-thread bodies, for the CPU
 // tests only (tests/test_torch_csrc_cpu.py): g++ compiles field.cuh,
-// curve.cuh and the __host__ __device__ parts of msm.cu and sumcheck.cu, and
+// curve.cuh and the __host__ __device__ parts of msm.cu, sumcheck.cu and
+// probe.cu, and
 // each function below runs a kernel's threads one after another.  No entry
 // point of the package loads this library.
 #include <stdint.h>
 
 #include "msm.cu"
+#include "probe.cu"
 #include "sumcheck.cu"
 
 using namespace pk;
@@ -19,15 +21,52 @@ static void fe_op(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
       case 0: r = fe_add<F>(x, y); break;
       case 1: r = fe_sub<F>(x, y); break;
       case 2: r = fe_mul<F>(x, y); break;
-      default: r = fe_neg<F>(x); break;
+      case 3: r = fe_neg<F>(x); break;
+      default: r = fe_mul_f32<F>(x, y); break;
     }
     fe_store(out + 8 * i, r);
   }
 }
 
+// K5: every thread of the launch, one after another.
+template <class F, int V, int E>
+static void chain_threads(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                          int64_t n, int chain, int64_t stride) {
+  for (int64_t tid = 0; tid < stride; tid++)
+    for (int64_t base = tid; base < n; base += stride * E)
+      chain_pass<F, V, E>(a, b, out, n, base, stride, chain);
+}
+
+template <class F, int V>
+static int chain_dispatch(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                          int64_t n, int chain, int per_thread, int64_t stride) {
+  switch (per_thread) {
+    case 1: chain_threads<F, V, 1>(a, b, out, n, chain, stride); return 0;
+    case 2: chain_threads<F, V, 2>(a, b, out, n, chain, stride); return 0;
+    case 4: chain_threads<F, V, 4>(a, b, out, n, chain, stride); return 0;
+    default: return -1;
+  }
+}
+
 extern "C" {
 
-// field: 0 = Fr, 1 = Fq; op: 0 add, 1 sub, 2 mul, 3 neg.
+int twin_mont_mul_chain(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                        long long n, int chain, int field, int variant,
+                        int per_thread, int blocks, int threads, void* stream) {
+  (void)stream;
+  int64_t stride = (int64_t)blocks * threads;
+  if (field == 0 && variant == 0)
+    return chain_dispatch<Fr, 0>(a, b, out, n, chain, per_thread, stride);
+  if (field == 0 && variant == 1)
+    return chain_dispatch<Fr, 1>(a, b, out, n, chain, per_thread, stride);
+  if (field == 1 && variant == 0)
+    return chain_dispatch<Fq, 0>(a, b, out, n, chain, per_thread, stride);
+  if (field == 1 && variant == 1)
+    return chain_dispatch<Fq, 1>(a, b, out, n, chain, per_thread, stride);
+  return -1;
+}
+
+// field: 0 = Fr, 1 = Fq; op: 0 add, 1 sub, 2 mul, 3 neg, 4 mul in float32.
 void twin_fe_op(int field, int op, const uint32_t* a, const uint32_t* b,
                 uint32_t* out, int64_t n) {
   if (field == 0)

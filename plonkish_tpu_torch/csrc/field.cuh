@@ -1,8 +1,8 @@
 // Prime-field arithmetic for the port's kernels: 8 x 32-bit limbs, little
 // endian, Montgomery form with R = 2^256, CIOS multiplication.
 //
-// Counterpart of plonkish_tpu/fields/soa.py (add, sub, neg, mont_mul, _redc),
-// which the Pallas kernels inline.  On the TPU a 254-bit product is built
+// Counterpart of plonkish_tpu/fields/soa.py (add, sub, neg, mont_mul, _redc,
+// mont_mul_f32), which the Pallas kernels inline.  On the TPU a 254-bit product is built
 // from 16 x 16-bit digit products because the VPU has no 64-bit multiplier;
 // here each 32 x 32 -> 64-bit partial product is one IMAD.WIDE pair, so a
 // product is 2 * 64 multiply-adds plus carries.  These kernels are bound by
@@ -41,6 +41,11 @@ struct Fr {
     return O[i];
   }
   static constexpr uint32_t INV = 0xefffffffu;  // -p^-1 mod 2^32
+  PK_HD static uint32_t pprime(int i) {  // -p^-1 mod 2^256
+    const uint32_t Q[8] = {0xefffffffu, 0xc2e1f593u, 0x4c6911b3u, 0x6586864bu,
+                           0x99062391u, 0xe39a9828u, 0x0d8341b2u, 0x73f82f1du};
+    return Q[i];
+  }
 };
 
 // BN254 base field Fq (G1 coordinates).
@@ -56,6 +61,11 @@ struct Fq {
     return O[i];
   }
   static constexpr uint32_t INV = 0xe4866389u;
+  PK_HD static uint32_t pprime(int i) {
+    const uint32_t Q[8] = {0xe4866389u, 0x87d20782u, 0x1eca6ac9u, 0x9ede7d65u,
+                           0x1833da80u, 0xd8afcbd0u, 0x91888c6bu, 0xf57a22b7u};
+    return Q[i];
+  }
 };
 
 PK_HD Fe fe_zero() {
@@ -178,6 +188,101 @@ PK_HD Fe fe_mul(const Fe& a, const Fe& b) {
 template <class F>
 PK_HD Fe fe_sqr(const Fe& a) {
   return fe_mul<F>(a, a);
+}
+
+// ---------------------------------------------------------------------------
+// The same product on the FP32 pipe (counterpart of soa.mont_mul_f32,
+// plonkish_tpu/fields/soa.py:231-367).  The 8 x 32-bit limbs are split into
+// 32 byte digits and converted to float; a schoolbook column is at most 32
+// products < 2^16, so < 2^21: every float below is an exact integer < 2^24
+// whether or not the compiler contracts the multiply-add into one FFMA.  The
+// columns go back to integers, and carries and the conditional subtraction
+// stay there.  The two fixed-operand products of the one-shot REDC
+// (m = T * p' mod R, then m * p) are float products too.  Bit for bit equal
+// to fe_mul: both return the canonical a * b * R^-1 mod p.
+// ---------------------------------------------------------------------------
+
+// Byte j (0..31) of an 8-limb constant table as a float.
+#define PK_BYTE_F32(limb_fn, j) ((float)(((limb_fn)((j) >> 2) >> (8 * ((j) & 3))) & 0xffu))
+
+PK_HD void fe_bytes_f32(const uint32_t* v, float* out) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+#pragma unroll
+    for (int j = 0; j < 4; j++) out[4 * i + j] = (float)((v[i] >> (8 * j)) & 0xffu);
+  }
+}
+
+template <class F>
+PK_HD Fe fe_mul_f32(const Fe& a, const Fe& b) {
+  float x8[32], y8[32];
+  fe_bytes_f32(a.v, x8);
+  fe_bytes_f32(b.v, y8);
+  // T = a * b: 63 base-256 columns, four to a 32-bit limb.
+  uint32_t t[16];
+  uint64_t acc = 0;
+#pragma unroll
+  for (int k = 0; k < 64; k++) {
+    if (k < 63) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 32; i++) {
+        if (k - i >= 0 && k - i < 32) s += x8[i] * y8[k - i];
+      }
+      acc += (uint64_t)(uint32_t)s << (8 * (k & 3));
+    }
+    if ((k & 3) == 3) {
+      t[k >> 2] = (uint32_t)acc;
+      acc >>= 32;
+    }
+  }
+  // m = (T mod R) * p' mod R: the low 32 columns only.
+  float t8[32];
+  fe_bytes_f32(t, t8);
+  uint32_t m[8];
+  acc = 0;
+#pragma unroll
+  for (int k = 0; k < 32; k++) {
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; i++) {
+      if (i <= k) {
+        const float c = PK_BYTE_F32(F::pprime, k - i);
+        if (c != 0.0f) s += t8[i] * c;
+      }
+    }
+    acc += (uint64_t)(uint32_t)s << (8 * (k & 3));
+    if ((k & 3) == 3) {
+      m[k >> 2] = (uint32_t)acc;
+      acc >>= 32;
+    }
+  }
+  // (T + m * p) / R: the low 8 limbs of the sum are zero, the high 8 are the
+  // result, < 2p < 2^255, so nothing carries out of limb 15.
+  float m8[32];
+  fe_bytes_f32(m, m8);
+  Fe r, d;
+  acc = 0;
+#pragma unroll
+  for (int k = 0; k < 64; k++) {
+    if (k < 63) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 32; i++) {
+        if (k - i >= 0 && k - i < 32) {
+          const float c = PK_BYTE_F32(F::p, k - i);
+          if (c != 0.0f) s += m8[i] * c;
+        }
+      }
+      acc += (uint64_t)(uint32_t)s << (8 * (k & 3));
+    }
+    if ((k & 3) == 3) {
+      acc += t[k >> 2];
+      if ((k >> 2) >= 8) r.v[(k >> 2) - 8] = (uint32_t)acc;
+      acc >>= 32;
+    }
+  }
+  return sub_p<F>(d, r) ? r : d;
 }
 
 PK_HD Fe fe_load(const uint32_t* p) {

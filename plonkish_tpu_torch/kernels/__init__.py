@@ -12,6 +12,7 @@ LAUNCHES = {
     "msm_window_sums": 0,
     "sumcheck_round": 0,
     "sumcheck_fold": 0,
+    "mont_mul_chain": 0,
 }
 
 

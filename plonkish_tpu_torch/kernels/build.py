@@ -26,7 +26,7 @@ from typing import Optional
 PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-CUDA_SOURCES = ("msm.cu", "sumcheck.cu")
+CUDA_SOURCES = ("msm.cu", "probe.cu", "sumcheck.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -123,7 +123,7 @@ def build_cpu_twin() -> pathlib.Path:
     gxx = shutil.which("g++")
     if gxx is None:
         raise FileNotFoundError("g++ not found")
-    names = ["cpu_twin.cpp", "field.cuh", "curve.cuh"]
+    names = ["cpu_twin.cpp", "field.cuh", "curve.cuh", *CUDA_SOURCES]
     out = BUILD / f"libplonkish_cpu_twin_{_digest(names)}.so"
     with _locked():
         if not out.exists():

@@ -1,4 +1,4 @@
-"""Kernels K1-K4 on a CUDA card against their plain versions, and a golden
+"""Kernels K1-K5 on a CUDA card against their plain versions, and a golden
 proof produced on the card.  Marked ``gpu``: without a card each test skips
 (decided inside the test, never at import).  On the card run them with
 
@@ -83,6 +83,29 @@ def test_sumcheck_kernels_match_plain(cuda):
 
 
 @pytest.mark.gpu
+def test_probe_kernel_matches_plain(cuda):
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES, probe
+
+    for spec in (BN254_FR, BN254_FQ):
+        rng = random.Random(8)
+        r = (1 << 256) % spec.p
+        xs = [0, 1, spec.p - 1, r, r * r % spec.p, ((1 << 255) - 19) % spec.p]
+        xs += [rng.randrange(spec.p) for _ in range(1000 - len(xs))]
+        ys = [rng.randrange(spec.p) for _ in range(1000)]
+        ys[6:8] = xs[6:8]
+        a, b = limb.from_ints(xs, cuda), limb.from_ints(ys, cuda)
+        want = probe.mont_mul_chain_plain(spec, a, b, 16, "u32")
+        before = LAUNCHES["mont_mul_chain"]
+        for variant in probe.VARIANTS:
+            for per_thread in probe.PER_THREAD:
+                got = probe.mont_mul_chain(spec, a, b, 16, variant, per_thread, 128)
+                assert torch.equal(got, want), (spec, variant, per_thread)
+        assert LAUNCHES["mont_mul_chain"] == before + 6
+
+
+@pytest.mark.gpu
 def test_golden_k3_on_the_card(cuda):
     from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -97,7 +120,8 @@ def test_golden_k3_on_the_card(cuda):
     reset_launches()
     tr = Keccak256Transcript(BN254_FR)
     backend.prove(pp, circuit, tr)
-    assert all(v > 0 for v in LAUNCHES.values()), LAUNCHES
+    prover_kernels = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+    assert all(LAUNCHES[name] > 0 for name in prover_kernels), LAUNCHES
     proof = tr.into_proof()
     assert proof == (GOLDEN / "hyperplonk_kzg_k3.bin").read_bytes()
     backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(BN254_FR, proof))

@@ -8,10 +8,13 @@ Phases, each printed on its own line; any failure exits non-zero:
 1. build the CUDA kernels from plonkish_tpu_torch/csrc (registers, shared
    memory and spills as ptxas reports them) and print the card;
 2. every kernel against its plain PyTorch version on the card, on the same
-   inputs, exact equality required (MSM K1+K2 at 2^12 points with edge cases
-   and at 2^16 random points, sum-check round K3 at 2^16 pairs for the
-   vanilla-PLONK expression and a degree-1 single-leaf one, fold K4, the
-   mont_mul chain probe K5 with both multipliers at 2^16 elements);
+   inputs, exact equality required (MSM K1+K2 at 2^12 points with edge cases,
+   at 2^16 random points and at 2^16 selector-like scalars in {0, 1, 2,
+   p - 1}; one variable_base_msm at 2^16 enqueued under
+   torch.cuda.set_sync_debug_mode("error") up to its one-point read;
+   sum-check round K3 at 2^16 pairs for the vanilla-PLONK expression and a
+   degree-1 single-leaf one, fold K4, the mont_mul chain probe K5 with both
+   multipliers at 2^16 elements);
 3. the three frozen KZG proofs of tests/golden produced on the card, byte for
    byte, and accepted by the port's verifier;
 4. HyperPlonk over BN254 with multilinear KZG on a random vanilla-PLONK
@@ -23,6 +26,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    version and the least time the card could take; the operation and byte
    counts are those of plonkish_tpu_torch/roofline.py, and the [peaks] line
    says which multiply-add rate, measured by K5 or assumed, the bounds used;
+   also K1 on selector-like scalars at 2^20 and the whole
+   variable_base_msm at 2^20 and at 2^10 (its fixed cost);
 6. the bench harness in process (plonkish_tpu_torch.benchmark): the
    zero_check and pcs systems at k = 20, whose rows are read back from
    target/bench_torch/, with the launch counts of all five kernels on that
@@ -176,9 +181,19 @@ def vanilla_state(torch, num_vars, gen, device="cuda"):
     return state, EvaluationsProver(state)
 
 
-def msm_inputs(torch, n, gen, edge):
-    """(bases, scalars) of n points: multiples of G by random scalars, with
-    repeated points, opposite points, identities and zero scalars when edge."""
+def selector_scalars(torch, spec, n, gen, device="cuda"):
+    """n canonical scalars drawn from {0, 1, 2, p - 1}, like a selector
+    column: a few buckets per window hold most entries."""
+    from plonkish_tpu_torch.fields import limb
+
+    table = limb.from_ints([0, 1, 2, spec.p - 1], device)
+    return table[torch.randint(0, 4, (n,), generator=gen).to(device)].contiguous()
+
+
+def msm_inputs(torch, n, gen, kind):
+    """(curve, bases, scalars) of n points: multiples of G by random scalars.
+    kind "edge": repeated points, opposite points, identities and zero
+    scalars; "selector": selector-like scalars; "random": nothing more."""
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.curves.host import AffinePoint
     from plonkish_tpu_torch.curves.specs import BN254_G1
@@ -188,7 +203,9 @@ def msm_inputs(torch, n, gen, edge):
     s = limb.to_mont(curve.scalar, rand_field(torch, curve.scalar, n, gen))
     bases = tmsm.fixed_base_msm(curve, AffinePoint.generator(curve), s)
     scalars = rand_field(torch, curve.scalar, n, gen)
-    if edge:
+    if kind == "selector":
+        scalars = selector_scalars(torch, curve.scalar, n, gen)
+    if kind == "edge":
         bases[1] = bases[0]  # a repeated point
         bases[2, 0] = bases[0, 0]  # the opposite point
         bases[2, 1] = limb.neg(curve.base, bases[0, 1][None])[0]
@@ -200,9 +217,26 @@ def msm_inputs(torch, n, gen, edge):
     return curve, bases, scalars
 
 
+def msm_without_sync(torch, curve, scalars, bases):
+    """variable_base_msm's device part under set_sync_debug_mode("error"):
+    fails if anything reads the device before the one result point."""
+    from plonkish_tpu_torch.curves import msm as tmsm
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        point = tmsm.msm_jacobian(curve, scalars, bases)
+    except RuntimeError as e:
+        fail(f"variable_base_msm synchronised before its result read: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return point
+
+
 # ------------------------------------------------------ 2 kernels vs plain
 
 def phase2_kernels(torch):
+    from plonkish_tpu_torch.curves import device as cdev
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -215,24 +249,32 @@ def phase2_kernels(torch):
     from plonkish_tpu_torch.utils.expression import Query, Rotation
 
     gen = torch.Generator().manual_seed(1)
-    for n, edge in ((1 << 12, True), (1 << 16, False)):
+    for n, kind in ((1 << 12, "edge"), (1 << 16, "random"), (1 << 16, "selector")):
         t0 = time.time()
-        curve, bases, scalars = msm_inputs(torch, n, gen, edge)
+        curve, bases, scalars = msm_inputs(torch, n, gen, kind)
         c = tmsm.window_size(n)
         w = tmsm.num_windows(curve, c)
         keys, src, nb = tmsm.msm_entries(scalars, c, w)
         k1 = kmsm.msm_bucket_sums_cuda(curve, bases, keys, src, w * nb)
         k1_plain = kmsm.msm_bucket_sums_plain(curve, bases, keys, src, w * nb)
         if not affine_equal(torch, curve, k1, k1_plain):
-            fail(f"K1 msm_bucket_sums differs from its plain version at n={n}")
+            fail(f"K1 msm_bucket_sums differs from its plain version at n={n} ({kind})")
         buckets = k1.reshape(w, nb, 3, 8)
-        k2 = kmsm.msm_window_sums_cuda(curve, buckets)
-        k2_plain = kmsm.msm_window_sums_plain(curve, buckets)
-        if not affine_equal(torch, curve, k2, k2_plain):
-            fail(f"K2 msm_window_sums differs from its plain version at n={n}")
-        if tmsm.combine_windows(curve, k2, c) != tmsm.combine_windows(curve, k2_plain, c):
-            fail(f"MSM result differs at n={n}")
-        log(f"[kernels] K1+K2 MSM n={n} edge={edge}: {w * nb} buckets, 0 mismatches "
+        k2 = kmsm.msm_window_sums_cuda(curve, buckets, c)
+        k2_plain = kmsm.msm_window_sums_plain(curve, buckets, c)
+        if not affine_equal(torch, curve, k2[None], k2_plain[None]):
+            fail(f"K2 msm_window_sums differs from its plain version at n={n} ({kind})")
+        want = cdev.jac_to_host(curve, k2_plain[None].cpu())[0]
+        if tmsm.variable_base_msm(curve, scalars, bases) != want:
+            fail(f"variable_base_msm differs from the plain K1 + K2 at n={n} ({kind})")
+        note = ""
+        if kind == "selector":
+            point = msm_without_sync(torch, curve, scalars, bases)
+            if cdev.jac_to_host(curve, point[None].cpu())[0] != want:
+                fail(f"variable_base_msm under the sync check differs at n={n}")
+            note = "; enqueued with no synchronisation before its one-point read"
+        log(f"[kernels] K1+K2 MSM n={n} {kind}: {w * nb} buckets, {keys.numel()} entries, "
+            f"{len(kmsm.bucket_level_sizes(keys.numel()))} K1 levels, 0 mismatches{note} "
             f"({time.time() - t0:.1f}s)")
 
     state, prover = vanilla_state(torch, 17, gen)
@@ -406,19 +448,37 @@ def phase5_timing(torch, shapes, main_path):
     c = tmsm.window_size(n)
     w = tmsm.num_windows(curve, c)
     keys, src, nb = tmsm.msm_entries(scalars, c, w)
-    m = keys.numel()
-    unique = int((keys[1:] != keys[:-1]).sum().item()) + 1
+    m = int((keys < w * nb).sum())  # live entries: the sentinel run sorts last
+    live = keys[:m]
+    unique = int((live[1:] != live[:-1]).sum()) + 1 if m else 0
     k1_ms = cuda_ms(torch, lambda: kmsm.msm_bucket_sums_cuda(curve, bases, keys, src, w * nb), 3)
     k1_plain_ms = cuda_ms(torch, lambda: kmsm.msm_bucket_sums_plain(curve, bases, keys, src, w * nb), 1)
     buckets = kmsm.msm_bucket_sums_cuda(curve, bases, keys, src, w * nb)
     k1_err = 0 if affine_equal(torch, curve, buckets, kmsm.msm_bucket_sums_plain(
         curve, bases, keys, src, w * nb)) else 1
     buckets = buckets.reshape(w, nb, 3, 8)
-    k2_ms = cuda_ms(torch, lambda: kmsm.msm_window_sums_cuda(curve, buckets), 3)
-    k2_plain_ms = cuda_ms(torch, lambda: kmsm.msm_window_sums_plain(curve, buckets), 1)
-    k2_err = 0 if affine_equal(torch, curve, kmsm.msm_window_sums_cuda(curve, buckets),
-                               kmsm.msm_window_sums_plain(curve, buckets)) else 1
-    log(f"[timing] MSM 2^{k}: c={c}, {w} windows, {m} entries, {unique} buckets used")
+    k2_ms = cuda_ms(torch, lambda: kmsm.msm_window_sums_cuda(curve, buckets, c), 3)
+    k2_plain_ms = cuda_ms(torch, lambda: kmsm.msm_window_sums_plain(curve, buckets, c), 1)
+    k2_err = 0 if affine_equal(torch, curve, kmsm.msm_window_sums_cuda(curve, buckets, c)[None],
+                               kmsm.msm_window_sums_plain(curve, buckets, c)[None]) else 1
+    log(f"[timing] MSM 2^{k}: c={c}, {w} windows, {keys.numel()} entries of which {m} "
+        f"live, {unique} buckets used, K1 levels {kmsm.bucket_level_sizes(keys.numel())}")
+    sel = selector_scalars(torch, curve.scalar, n, gen)
+    sel_keys, sel_src, _ = tmsm.msm_entries(sel, c, w)
+    k1_sel_ms = cuda_ms(
+        torch, lambda: kmsm.msm_bucket_sums_cuda(curve, bases, sel_keys, sel_src, w * nb), 3)
+    log(f"[timing] K1 on selector-like scalars at 2^{k}: {k1_sel_ms:.3f} ms "
+        f"({int((sel_keys < w * nb).sum())} live entries; random scalars {k1_ms:.3f} ms)")
+    msm_ms = cuda_ms(torch, lambda: tmsm.variable_base_msm(curve, scalars, bases), 3)
+    log(f"[timing] variable_base_msm at 2^{k}: {msm_ms:.3f} ms (recode, sort, K1, K2, "
+        "one-point read)")
+    small = 10
+    small_bases = shapes["pp"].pcs.eq(small)
+    small_scalars = scalars[: 1 << small].contiguous()
+    msm_small_ms = cuda_ms(
+        torch, lambda: tmsm.variable_base_msm(curve, small_scalars, small_bases), 20)
+    log(f"[timing] variable_base_msm at 2^{small}: {msm_small_ms:.3f} ms (the fixed cost "
+        "of one MSM)")
 
     state, prover = vanilla_state(torch, k, gen)
     ids = identity_params(BN254_FR, 0, state.identity_offset, "cuda")
@@ -474,7 +534,7 @@ def phase5_timing(torch, shapes, main_path):
          roofline.bucket_sums_work(n, m, unique)),
         ("msm_window_sums", "plonkish_tpu_torch/csrc/msm.cu",
          "plonkish_tpu/pallas/msm.py:119", k2_ms, k2_plain_ms, k2_err,
-         roofline.window_sums_work(w, nb)),
+         roofline.window_sums_work(w, nb, c)),
         ("sumcheck_round", "plonkish_tpu_torch/csrc/sumcheck.cu",
          "plonkish_tpu/pallas/sumcheck.py:159", k3_ms, k3_plain_ms, k3_err,
          roofline.round_work(t_count, pairs, state.degree, n_mul)),

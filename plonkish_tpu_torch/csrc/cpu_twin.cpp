@@ -6,6 +6,8 @@
 // point of the package loads this library.
 #include <stdint.h>
 
+#include <vector>
+
 #include "msm.cu"
 #include "probe.cu"
 #include "sumcheck.cu"
@@ -94,38 +96,73 @@ void twin_jac_dbl(const uint32_t* p, uint32_t* out, int64_t n) {
     jac_store(out + 24 * i, jac_dbl<Fq>(jac_load(p + 24 * i)));
 }
 
-// K1: every thread of one level, in order.
-int twin_msm_bucket_level(const int32_t* keys, int n, const int32_t* src,
-                          const uint32_t* bases, const uint32_t* partials,
-                          int affine, int chunk, int offset, uint32_t* out,
-                          uint8_t* flag, void* stream) {
+// K1: one level, tile by tile; each tile's threads one after another
+// between the kernel's barriers.
+int twin_msm_bucket_level(const int32_t* keys, const int32_t* aux,
+                          const uint32_t* points, long long m, int num_keys,
+                          int affine, uint32_t* buckets, int32_t* ck, int32_t* cf,
+                          uint32_t* cp, void* stream) {
   (void)stream;
-  int64_t threads = ((int64_t)n + offset + chunk - 1) / chunk;
-  for (int64_t t = 0; t < threads; t++) {
-    int64_t start, end;
-    bucket_level_range(t, n, chunk, offset, &start, &end);
-    bucket_level_thread(start, end, keys, src, bases, partials, affine, out, flag);
+  std::vector<Seg> segs(K1_THREADS);
+  std::vector<uint32_t> pf(K1_THREADS * 32);
+  for (int64_t tile = 0; tile * K1_TILE < m; tile++) {
+    for (int tid = 0; tid < K1_THREADS; tid++) {
+      if (affine)
+        bucket_walk<true>(tile, tid, keys, aux, points, m, num_keys, buckets,
+                          segs.data(), pf.data());
+      else
+        bucket_walk<false>(tile, tid, keys, aux, points, m, num_keys, buckets,
+                           segs.data(), pf.data());
+    }
+    for (int s = 1; s < K1_THREADS; s <<= 1)
+      for (int tid = 0; tid < K1_THREADS; tid++)
+        bucket_tree_step(tid, s, segs.data(), buckets, num_keys);
+    bucket_tile_root(tile, segs[0], keys, m, num_keys, buckets, ck, cf, cp);
   }
   return 0;
 }
 
-// K2: per window, every thread's range, then the block's tree.
-int twin_msm_window_reduce(const uint32_t* buckets, int num_windows,
-                           int num_buckets, int threads, uint32_t* out,
-                           void* stream) {
+// K2: one level, block by block, in the kernel's phases.
+int twin_msm_window_level(const uint32_t* in, int level, int n_in, int windows,
+                          uint32_t* out, int n_out, void* stream) {
   (void)stream;
-  Jac sh[1024];
-  if (threads > 1024) return -1;
-  for (int w = 0; w < num_windows; w++) {
-    for (int tid = 0; tid < threads; tid++) {
-      int lo, hi;
-      window_range(tid, threads, num_buckets, &lo, &hi);
-      sh[tid] = window_thread(buckets + (int64_t)w * num_buckets * 24, lo, hi);
+  std::vector<Jac> P(2 * K2_THREADS), V(K2_THREADS);
+  int log_span = K2_LOG_SEGMENT + level * K2_LOG_THREADS;
+  for (int w = 0; w < windows; w++) {
+    for (int blk = 0; blk < n_out; blk++) {
+      for (int tid = 0; tid < K2_THREADS; tid++) {
+        int64_t item = (int64_t)blk * K2_THREADS + tid;
+        if (level == 0)
+          window_item<true>(w, item, in, n_in, tid, P.data(), V.data());
+        else
+          window_item<false>(w, item, in, n_in, tid, P.data(), V.data());
+      }
+      for (int k = 0; k < K2_LOG_THREADS; k++)
+        for (int tid = 0; tid < K2_THREADS; tid++)
+          suffix_scan_step(tid, 1 << k, P.data() + (k & 1) * K2_THREADS,
+                           P.data() + ((k + 1) & 1) * K2_THREADS);
+      const Jac* suf = P.data() + (K2_LOG_THREADS & 1) * K2_THREADS;
+      for (int tid = 0; tid < K2_THREADS; tid++) window_share(tid, log_span, suf, V.data());
+      for (int s = K2_THREADS / 2; s > 0; s >>= 1)
+        for (int tid = 0; tid < K2_THREADS; tid++) tree_sum_step(tid, s, V.data());
+      uint32_t* o = out + ((int64_t)w * n_out + blk) * 48;
+      jac_store(o, suf[0]);
+      jac_store(o + 24, V[0]);
     }
-    for (int s = threads / 2; s > 0; s >>= 1)
-      for (int tid = 0; tid < s; tid++) sh[tid] = jac_add<Fq>(sh[tid], sh[tid + s]);
-    jac_store(out + (int64_t)w * 24, sh[0]);
   }
+  return 0;
+}
+
+// K2's combine: every window's doublings, then the tree.
+int twin_msm_window_combine(const uint32_t* pv, int windows, int c, uint32_t* out,
+                            void* stream) {
+  (void)stream;
+  if (windows > K2_THREADS) return -1;
+  std::vector<Jac> V(K2_THREADS);
+  for (int tid = 0; tid < K2_THREADS; tid++) combine_thread(tid, pv, windows, c, V.data());
+  for (int s = K2_THREADS / 2; s > 0; s >>= 1)
+    for (int tid = 0; tid < K2_THREADS; tid++) tree_sum_step(tid, s, V.data());
+  jac_store(out, V[0]);
   return 0;
 }
 

@@ -116,17 +116,6 @@ PK_HD Jac jac_add(const Jac& p, const Jac& q) {
   return o;
 }
 
-// k * p for a small non-negative k (double and add, most significant bit first).
-template <class F>
-PK_HD Jac jac_mul_small(const Jac& p, uint32_t k) {
-  Jac acc = jac_identity();
-  for (int bit = 31; bit >= 0; bit--) {
-    acc = jac_dbl<F>(acc);
-    if ((k >> bit) & 1) acc = jac_add<F>(acc, p);
-  }
-  return acc;
-}
-
 PK_HD Jac jac_load(const uint32_t* p) {
   Jac r;
   r.x = fe_load(p);

@@ -43,24 +43,30 @@ class _F:
         return limb.d_sub(a, b, self.c)
 
 
+def _cat(*vs):
+    return torch.cat(vs, dim=1)
+
+
+def _split(v, parts):
+    return v.tensor_split(parts, dim=1)
+
+
 def jdbl(curve: CurveSpec, p):
-    """Jacobian doubling, a = 0 (dbl-2009-l)."""
+    """Jacobian doubling, a = 0 (dbl-2009-l).  Independent products and sums
+    go through one call on the stacked operands: a chain of doublings (the
+    MSM's window combine) is bound by the number of calls, not their width."""
     x1, y1, z1 = p
     f = _F(curve, x1.device)
-    a = f.sqr(x1)
-    b = f.sqr(y1)
-    c = f.sqr(b)
-    d = f.sqr(f.add(x1, b))
+    a, b, z3 = _split(f.mul(_cat(x1, y1, y1), _cat(x1, y1, z1)), 3)
+    xb, a2 = _split(f.add(_cat(x1, a), _cat(b, a)), 2)
+    c, d = _split(f.sqr(_cat(b, xb)), 2)
+    e = f.add(a2, a)
     d = f.sub(f.sub(d, a), c)
-    d = f.add(d, d)
-    e = f.add(f.add(a, a), a)
-    x3 = f.sub(f.sqr(e), f.add(d, d))
-    c8 = f.add(c, c)
-    c8 = f.add(c8, c8)
+    d, c8, z3 = _split(f.add(_cat(d, c, z3), _cat(d, c, z3)), 3)
+    d2, c8 = _split(f.add(_cat(d, c8), _cat(d, c8)), 2)
+    x3 = f.sub(f.sqr(e), d2)
     c8 = f.add(c8, c8)
     y3 = f.sub(f.mul(e, f.sub(d, x3)), c8)
-    z3 = f.mul(y1, z1)
-    z3 = f.add(z3, z3)
     return (x3, y3, z3)
 
 
@@ -206,14 +212,15 @@ def affine_from_host(curve: CurveSpec, points, device) -> torch.Tensor:
 
 
 def jac_to_host(curve: CurveSpec, t: torch.Tensor) -> List[AffinePoint]:
-    """int32[N, 3, 8] Jacobian storage -> host AffinePoints (host inversions)."""
+    """int32[N, 3, 8] Jacobian storage -> host AffinePoints (one read of the
+    tensor, then Python integers: the Montgomery factor and the inversions)."""
     spec = curve.base
     p = spec.p
-    xs = limb.to_canonical_ints(spec, t[:, 0])
-    ys = limb.to_canonical_ints(spec, t[:, 1])
-    zs = limb.to_canonical_ints(spec, t[:, 2])
+    r_inv = pow(1 << 256, -1, p)
+    vals = limb.to_ints(t.reshape(-1, 8))
     out = []
-    for x, y, z in zip(xs, ys, zs):
+    for i in range(0, len(vals), 3):
+        x, y, z = (v * r_inv % p for v in vals[i: i + 3])
         if z == 0:
             out.append(AffinePoint.identity(curve))
             continue

@@ -3,18 +3,23 @@
 Pippenger with signed windows, shaped for a card with atomics and a fast sort
 rather than for the TPU's lane-private buckets:
 
-1. every scalar is recoded on the device into signed c-bit digits, giving
-   B = 2^(c-1) + 1 buckets per window (bucket 0 unused);
-2. the non-zero (window, bucket) entries are sorted by key, so each bucket's
-   points are one contiguous run;
+1. every scalar is recoded on the device into signed c-bit digits, all
+   windows in one pass, giving B = 2^(c-1) + 1 buckets per window (bucket 0
+   unused);
+2. every (window, point) digit is sorted by key, so each bucket's points are
+   one contiguous run; zero digits take a sentinel key that sorts last, so
+   nothing is compacted;
 3. K1 (``kernels.msm.bucket_sums``) reduces each run with complete mixed
    additions, so repeated points, P + (-P) and the identity come out right
    and no random blind is needed;
-4. K2 (``kernels.msm.window_sums``) forms sum_b b * B_b per window;
-5. the host combines the windows with c doublings each.
+4. K2 (``kernels.msm.window_sums``) forms sum_b b * B_b per window and
+   combines the windows, c doublings each, into one Jacobian point.
 
-Every MSM takes this path at every size; the window size c is chosen from
-the number of points and does not change the result.
+On a CUDA tensor all of this is enqueued without a read from the device: the
+sizes of every array and launch follow from N alone.  Only the one result
+point is read back and made affine on the host (one inversion).  Every MSM
+takes this path at every size; the window size c is chosen from the number
+of points and does not change the result.
 """
 
 from __future__ import annotations
@@ -43,52 +48,57 @@ def num_windows(curve: CurveSpec, c: int) -> int:
 def signed_digits(scalars: torch.Tensor, c: int, windows: int):
     """Canonical scalars int32[N, 8] -> (bucket int64[W, N], negative bool[W, N]).
 
-    d_w = ((s >> c*w) & (2^c - 1)) + carry, taken as d_w - 2^c with a carry
-    of 1 into the next window when d_w >= 2^(c-1)."""
+    d_w = ((s >> c*w) & (2^c - 1)) + carry_w, taken as d_w - 2^c with a carry
+    of 1 into the next window when d_w >= 2^(c-1).  All windows at once: a
+    raw digit >= 2^(c-1) makes a carry, one equal to 2^(c-1) - 1 passes an
+    incoming carry on, any other stops it, so the carry out of window w is
+    the making bit of the last window up to w that does not pass carries on
+    (a running maximum over the window axis)."""
     n = scalars.shape[0]
+    dev = scalars.device
     v = scalars.to(torch.int64) & 0xFFFFFFFF
-    v = torch.cat([v, torch.zeros((n, 2), dtype=torch.int64, device=v.device)], 1)
-    mask = (1 << c) - 1
+    v = torch.cat([v, torch.zeros((n, 2), dtype=torch.int64, device=dev)], 1).T
     half = 1 << (c - 1)
-    carry = torch.zeros(n, dtype=torch.int64, device=v.device)
-    buckets, negs = [], []
-    for w in range(windows):
-        off = w * c
-        li, sh = off // 32, off % 32
-        d = v[:, li] >> sh
-        if sh + c > 32:
-            d = d | (v[:, li + 1] << (32 - sh))
-        d = (d & mask) + carry
-        carry = (d >= half).to(torch.int64)
-        d = d - (carry << c)
-        buckets.append(d.abs())
-        negs.append(d < 0)
-    return torch.stack(buckets), torch.stack(negs)
+    off = torch.arange(windows, device=dev) * c
+    li, sh = off // 32, (off % 32).unsqueeze(1)
+    raw = ((v[li] >> sh) | (v[li + 1] << (32 - sh))) & ((1 << c) - 1)
+    window = torch.arange(windows, device=dev).unsqueeze(1).expand(windows, n)
+    stop = torch.cummax(window.masked_fill(raw == half - 1, -1), 0).values
+    carry = (stop >= 0) & (raw >= half).gather(0, stop.clamp(min=0))
+    carry_in = torch.cat([torch.zeros_like(carry[:1]), carry[:-1]])
+    d = raw + carry_in - (carry.to(torch.int64) << c)
+    return d.abs(), d < 0
 
 
 def msm_entries(scalars: torch.Tensor, c: int, windows: int):
-    """Non-zero (window, bucket) entries of the recoded scalars, sorted by
-    key: (keys int32[M], src int32[M] = 2 * point + sign, keys per window)."""
+    """Every (window, point) digit of the recoded scalars, sorted by key:
+    (keys int32[W * N], src int32[W * N] = 2 * point + sign, buckets per
+    window B).  A non-zero digit of window w in bucket b has key w * B + b; a
+    zero digit has the sentinel key W * B, which sorts after every real key."""
     n = scalars.shape[0]
     nb = (1 << (c - 1)) + 1
     bucket, neg = signed_digits(scalars, c, windows)
     dev = bucket.device
     keys = bucket + torch.arange(windows, device=dev).unsqueeze(1) * nb
-    src = 2 * torch.arange(n, device=dev).expand(windows, n) + neg.to(torch.int64)
-    live = bucket != 0
-    keys, order = torch.sort(keys[live])
-    src = src[live][order]
-    return keys.to(torch.int32).contiguous(), src.to(torch.int32).contiguous(), nb
+    keys = keys.masked_fill(bucket == 0, windows * nb).to(torch.int32)
+    src = 2 * torch.arange(n, device=dev, dtype=torch.int32) + neg.to(torch.int32)
+    keys, order = torch.sort(keys.reshape(-1))
+    src = src.reshape(-1)[order]
+    return keys.contiguous(), src.contiguous(), nb
 
 
-def combine_windows(curve: CurveSpec, window_sums: torch.Tensor, c: int) -> AffinePoint:
-    """sum_w 2^(c*w) * window_w on the host (c doublings per window)."""
-    acc = AffinePoint.identity(curve)
-    for wp in reversed(cdev.jac_to_host(curve, window_sums)):
-        for _ in range(c):
-            acc = acc.double()
-        acc = acc + wp
-    return acc
+def msm_jacobian(curve: CurveSpec, scalars: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
+    """sum_i scalars[i] * bases[i] as one Jacobian point int32[3, 8] on the
+    scalars' device; on a card, enqueued without a read from it."""
+    n = scalars.shape[0]
+    assert bases.shape[0] == n, (bases.shape, scalars.shape)
+    if n == 0:
+        return limb.zeros((3,), scalars.device)
+    c = window_size(n)
+    w = num_windows(curve, c)
+    keys, src, nb = msm_entries(scalars, c, w)
+    buckets = kmsm.bucket_sums(curve, bases.contiguous(), keys, src, w * nb)
+    return kmsm.window_sums(curve, buckets.reshape(w, nb, 3, 8), c)
 
 
 def variable_base_msm(
@@ -97,17 +107,10 @@ def variable_base_msm(
     """sum_i scalars[i] * bases[i].
 
     scalars: canonical (not Montgomery) int32[N, 8]; bases: affine
-    int32[N, 2, 8] on the same device."""
-    n = scalars.shape[0]
-    assert bases.shape[0] == n, (bases.shape, scalars.shape)
-    if n == 0:
-        return AffinePoint.identity(curve)
-    c = window_size(n)
-    w = num_windows(curve, c)
-    keys, src, nb = msm_entries(scalars, c, w)
-    buckets = kmsm.bucket_sums(curve, bases.contiguous(), keys, src, w * nb)
-    windows = kmsm.window_sums(curve, buckets.reshape(w, nb, 3, 8))
-    return combine_windows(curve, windows, c)
+    int32[N, 2, 8] on the same device.  The one result point is the only
+    read from the device."""
+    point = msm_jacobian(curve, scalars, bases).cpu()
+    return cdev.jac_to_host(curve, point[None])[0]
 
 
 def msm_affine(scalars: Sequence[Fp], points: Sequence[AffinePoint]) -> AffinePoint:

@@ -1,21 +1,27 @@
-"""MSM kernels K1 (bucket sums) and K2 (window sums), with plain versions.
+"""MSM kernels K1 (bucket sums) and K2 (window sums and their combine), with
+plain versions.
 
 K1 replaces plonkish_tpu/pallas/msm.py::_bucket_kernel (pallas/msm.py:46) and
 K2 replaces ::_reduce_kernel (pallas/msm.py:119), both launched there by
-``_msm_windows_pallas_jit``.  The CUDA sources are ``csrc/msm.cu`` over the
+``_msm_windows_pallas_jit``; K2 also does the window combine that the
+reference leaves to the host.  The CUDA sources are ``csrc/msm.cu`` over the
 shared headers ``csrc/field.cuh`` and ``csrc/curve.cuh``.
 
 Inputs of K1: the affine basis ``int32[N, 2, 8]`` (Montgomery Fq, identity as
-(0, 0)), and the (window, bucket) entries of the recoded scalars, sorted by
-key: ``keys int32[M]`` (window * B + bucket) and ``src int32[M]``
-(2 * point index + sign).  Output: one Jacobian sum per key,
-``int32[num_keys, 3, 8]`` (identity where no entry has the key).
+(0, 0)), and every (window, point) digit of the recoded scalars, sorted by
+key: ``keys int32[M]`` (window * B + bucket, or the sentinel ``num_keys`` for
+a zero digit) and ``src int32[M]`` (2 * point index + sign).  Output: one
+Jacobian sum per key, ``int32[num_keys, 3, 8]`` (identity where no live entry
+has the key).
 
-Input of K2: the buckets as ``int32[W, B, 3, 8]``; output the window sums
-``sum_b b * bucket[w, b]`` as ``int32[W, 3, 8]`` Jacobian.
+Input of K2: the buckets as ``int32[W, B, 3, 8]`` and the window width c;
+output the one Jacobian point ``sum_w 2^(c*w) * sum_b b * bucket[w, b]`` as
+``int32[3, 8]``.
 
-Jacobian coordinates are not unique, so the kernels and the plain versions
-are compared after conversion to affine points.
+On a CUDA tensor both enqueue a number of launches that follows from the
+sizes alone, and read nothing back.  Jacobian coordinates are not unique, so
+the kernels and the plain versions are compared after conversion to affine
+points.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ from ..fields import limb
 from . import LAUNCHES
 from . import build
 
-CHUNK = 32  # sorted entries per thread and level in K1
-WINDOW_THREADS = 128  # threads per window in K2
+# Sizes compiled into csrc/msm.cu (checked by ``msm_check_layout``).
+K1_TILE = 4096  # sorted entries per block and level: 128 threads x 32
+K2_SEGMENT = 16  # buckets per thread at K2's first level
+K2_THREADS = 128  # items per block at every K2 level
 PLAIN_CHUNK = 1 << 20  # point additions per vectorised step of the plain K1
 
 
@@ -49,6 +57,33 @@ def _check_curve(curve: CurveSpec):
         raise NotImplementedError("the MSM kernels are built for BN254 G1")
 
 
+def check_layout(lib) -> None:
+    """Raise unless `lib` (the kernel library or its host twin) was built
+    with this module's K1_TILE, K2_SEGMENT and K2_THREADS."""
+    fn = build.bind(lib.msm_check_layout, [ctypes.c_int] * 3)
+    if fn(K1_TILE, K2_SEGMENT, K2_THREADS) != 0:
+        raise ValueError("kernels/msm.py and csrc/msm.cu disagree on the MSM layout")
+
+
+def _tree_sum(curve, pts, groups: int):
+    """Sum each of `groups` equal runs of the batch `pts` (digit tuples of
+    width groups * size) in a pairwise tree -> digit tuples of width groups."""
+    size = pts[0].shape[1] // groups
+    full = 1 << max(0, (size - 1).bit_length())
+    dev = pts[0].device
+    acc = tuple(
+        torch.cat([v.reshape(16, groups, size),
+                   torch.zeros(16, groups, full - size, dtype=v.dtype, device=dev)], 2)
+        for v in pts
+    )
+    while full > 1:
+        full //= 2
+        p = tuple(v[:, :, :full].reshape(16, -1) for v in acc)
+        q = tuple(v[:, :, full:].reshape(16, -1) for v in acc)
+        acc = tuple(v.reshape(16, groups, full) for v in cdev.jadd(curve, p, q))
+    return tuple(v.reshape(16, groups) for v in acc)
+
+
 # ---------------------------------------------------------------------------
 # K1: bucket sums
 # ---------------------------------------------------------------------------
@@ -63,8 +98,11 @@ def _entry_points(curve, bases, src):
 
 
 def msm_bucket_sums_plain(curve, bases, keys, src, num_keys):
-    """Segmented sums of the sorted entries, pairwise within each run of
-    equal keys (about 2M point additions over log2(longest run) levels)."""
+    """Segmented sums of the sorted live entries (keys below the sentinel),
+    pairwise within each run of equal keys (about 2M point additions over
+    log2(longest run) levels)."""
+    live = keys < num_keys
+    keys, src = keys[live], src[live]
     pts = _entry_points(curve, bases, src)
     k = keys.long()
     while k.numel() > 1:
@@ -93,46 +131,54 @@ def msm_bucket_sums_plain(curve, bases, keys, src, num_keys):
     return out
 
 
+def bucket_level_sizes(m: int):
+    """[(entries, tiles)] of K1's levels over m sorted entries: a level of
+    t > 1 tiles leaves 2t carry slots to the next."""
+    sizes = []
+    while m > 0:
+        tiles = -(-m // K1_TILE)
+        sizes.append((m, tiles))
+        if tiles == 1:
+            break
+        m = 2 * tiles
+    return sizes
+
+
 def bucket_levels(level_fn, stream, bases, keys, src, num_keys):
-    """Drive K1's levels: launch, keep the flagged partial sums, repeat on
-    them (with the other chunk alignment) until one sum per key is left.
-    `level_fn` is the C entry point ``msm_bucket_level`` (or its host twin)."""
+    """Drive K1's levels through `level_fn` (the C entry point
+    ``msm_bucket_level`` or its host twin): level 0 over the sorted entries,
+    each later one over the previous level's carry slots, until a level fits
+    one tile."""
     dev = bases.device
-    out_buckets = limb.zeros((num_keys, 3), dev)
-    m = keys.numel()
-    if m == 0:
-        return out_buckets
-    num_unique = int((keys[1:] != keys[:-1]).sum().item()) + 1
-    pts = torch.zeros((1, 3, 8), dtype=torch.int32, device=dev)
-    affine, level, stalled = 1, 0, 0
-    while True:
-        out = torch.empty((m, 3, 8), dtype=torch.int32, device=dev)
-        flag = torch.empty((m,), dtype=torch.uint8, device=dev)
-        offset = (CHUNK // 2) * (level % 2)
-        rc = level_fn(keys.data_ptr(), m, src.data_ptr(), bases.data_ptr(),
-                      pts.data_ptr(), affine, CHUNK, offset, out.data_ptr(),
-                      flag.data_ptr(), stream)
+    buckets = limb.zeros((num_keys, 3), dev)
+    k_in, aux, pts, affine = keys, src, bases, 1
+    for m, tiles in bucket_level_sizes(keys.numel()):
+        ck = torch.empty((2 * tiles,), dtype=torch.int32, device=dev)
+        cf = torch.empty((2 * tiles,), dtype=torch.int32, device=dev)
+        cp = torch.empty((2 * tiles, 3, 8), dtype=torch.int32, device=dev)
+        rc = level_fn(k_in.data_ptr(), aux.data_ptr(), pts.data_ptr(), m, num_keys,
+                      affine, buckets.data_ptr(), ck.data_ptr(), cf.data_ptr(),
+                      cp.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"msm_bucket_level launch failed: CUDA error {rc}")
         LAUNCHES["msm_bucket_sums"] += 1
-        sel = flag.nonzero().squeeze(1)
-        keys, pts = keys[sel].contiguous(), out[sel].contiguous()
-        stalled = stalled + 1 if keys.numel() == m and not affine else 0
-        if stalled > 2:
-            raise RuntimeError("msm_bucket_level made no progress")
-        m = keys.numel()
-        affine, level = 0, level + 1
-        if m == num_unique:
-            break
-    out_buckets[keys.long()] = pts
-    return out_buckets
+        k_in, aux, pts, affine = ck, cf, cp, 0
+    return buckets
 
 
-LEVEL_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+LEVEL_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 WINDOW_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p, ctypes.c_void_p]
+               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+COMBINE_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p]
+
+
+def _lib():
+    lib = build.lib()
+    check_layout(lib)
+    return lib
 
 
 def msm_bucket_sums_cuda(curve, bases, keys, src, num_keys):
@@ -143,7 +189,9 @@ def msm_bucket_sums_cuda(curve, bases, keys, src, num_keys):
     dev = bases.device
     if dev.type != "cuda" or keys.device != dev or src.device != dev:
         raise ValueError("bases, keys and src must be on one CUDA device")
-    fn = build.bind(build.lib().msm_bucket_level, LEVEL_ARGS)
+    if bases.data_ptr() % 16:
+        raise ValueError("bases must be 16-byte aligned (K1 copies its points with cp.async)")
+    fn = build.bind(_lib().msm_bucket_level, LEVEL_ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     return bucket_levels(fn, stream, bases, keys, src, num_keys)
 
@@ -156,12 +204,26 @@ def bucket_sums(curve, bases, keys, src, num_keys):
 
 
 # ---------------------------------------------------------------------------
-# K2: window sums
+# K2: window sums and their combine
 # ---------------------------------------------------------------------------
 
-def msm_window_sums_plain(curve, buckets):
-    """sum_b b * bucket[w, b] per window: every bucket times its index by
-    double-and-add, then a tree sum over the bucket axis."""
+def msm_window_combine_plain(curve, window_sums, c):
+    """sum_w 2^(c*w) * window_sums[w] -> int32[3, 8]: window w doubled c * w
+    times (all windows at once, each dropped when it has its doublings), then
+    a tree sum, as the combine kernel does it."""
+    pts = cdev.unpack_jac(window_sums)
+    for lo in range(1, window_sums.shape[0]):
+        tail = tuple(v[:, lo:] for v in pts)
+        for _ in range(c):
+            tail = cdev.jdbl(curve, tail)
+        pts = tuple(torch.cat([v[:, :lo], t], 1) for v, t in zip(pts, tail))
+    return cdev.pack_jac(_tree_sum(curve, pts, 1))[0]
+
+
+def msm_window_sums_plain(curve, buckets, c):
+    """sum_b b * bucket[w, b] per window (every bucket times its index by
+    double-and-add, then a tree sum over the bucket axis), combined into one
+    point by ``msm_window_combine_plain``."""
     w, b = buckets.shape[:2]
     dev = buckets.device
     pts = cdev.unpack_jac(buckets.reshape(w * b, 3, 8))
@@ -173,42 +235,50 @@ def msm_window_sums_plain(curve, buckets):
         added = cdev.jadd(curve, acc, pts)
         sel = ((idx >> bit) & 1).bool()
         acc = tuple(torch.where(sel, a2, a1) for a1, a2 in zip(acc, added))
-    size = 1 << max(0, (b - 1).bit_length())
-    acc = tuple(
-        torch.cat([v.reshape(16, w, b), torch.zeros(16, w, size - b, dtype=v.dtype, device=dev)], 2)
-        for v in acc
-    )
-    while size > 1:
-        size //= 2
-        p = tuple(v[:, :, :size].reshape(16, -1) for v in acc)
-        q = tuple(v[:, :, size:].reshape(16, -1) for v in acc)
-        acc = tuple(v.reshape(16, w, size) for v in cdev.jadd(curve, p, q))
-    return cdev.pack_jac(tuple(v.reshape(16, w) for v in acc))
+    sums = cdev.pack_jac(_tree_sum(curve, acc, w))
+    return msm_window_combine_plain(curve, sums, c)
 
 
-def window_launch(reduce_fn, stream, buckets):
-    """Launch K2 through `reduce_fn` (``msm_window_reduce`` or its host twin)."""
+def window_levels(level_fn, combine_fn, stream, buckets, c):
+    """Drive K2 through `level_fn` and `combine_fn` (``msm_window_level`` and
+    ``msm_window_combine`` or their host twins): levels until one item per
+    window is left, then the combine."""
     w, b = buckets.shape[:2]
-    out = torch.empty((w, 3, 8), dtype=torch.int32, device=buckets.device)
-    rc = reduce_fn(buckets.data_ptr(), w, b, WINDOW_THREADS, out.data_ptr(), stream)
+    dev = buckets.device
+    src, n_in, level = buckets, b, 0
+    while True:
+        items = -(-n_in // K2_SEGMENT) if level == 0 else n_in
+        n_out = -(-items // K2_THREADS)
+        out = torch.empty((w, n_out, 2, 3, 8), dtype=torch.int32, device=dev)
+        rc = level_fn(src.data_ptr(), level, n_in, w, out.data_ptr(), n_out, stream)
+        if rc != 0:
+            raise RuntimeError(f"msm_window_level launch failed: CUDA error {rc}")
+        LAUNCHES["msm_window_sums"] += 1
+        if n_out == 1:
+            break
+        src, n_in, level = out, n_out, level + 1
+    point = torch.empty((3, 8), dtype=torch.int32, device=dev)
+    rc = combine_fn(out.data_ptr(), w, c, point.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"msm_window_reduce launch failed: CUDA error {rc}")
+        raise RuntimeError(f"msm_window_combine launch failed: code {rc} ({w} windows)")
     LAUNCHES["msm_window_sums"] += 1
-    return out
+    return point
 
 
-def msm_window_sums_cuda(curve, buckets):
+def msm_window_sums_cuda(curve, buckets, c):
     _check_curve(curve)
     _check(buckets, torch.int32, (3, 8), "buckets")
     if buckets.dim() != 4 or buckets.device.type != "cuda":
         raise ValueError("buckets must be a CUDA int32[W, B, 3, 8]")
-    fn = build.bind(build.lib().msm_window_reduce, WINDOW_ARGS)
+    lib = _lib()
+    level_fn = build.bind(lib.msm_window_level, WINDOW_ARGS)
+    combine_fn = build.bind(lib.msm_window_combine, COMBINE_ARGS)
     stream = torch.cuda.current_stream(buckets.device).cuda_stream
-    return window_launch(fn, stream, buckets)
+    return window_levels(level_fn, combine_fn, stream, buckets, c)
 
 
-def window_sums(curve, buckets):
-    """K2: per-window weighted bucket sums."""
+def window_sums(curve, buckets, c):
+    """K2: sum_w 2^(c*w) * sum_b b * bucket[w, b] as one Jacobian point."""
     if buckets.device.type == "cpu":
-        return msm_window_sums_plain(curve, buckets)
-    return msm_window_sums_cuda(curve, buckets)
+        return msm_window_sums_plain(curve, buckets, c)
+    return msm_window_sums_cuda(curve, buckets, c)

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 FE_MUL_IMAD = 256  # 128 32x32->64-bit partial products, 2 multiply-adds each
 MADD_MULS = 11  # mixed Jacobian addition: 7M + 4S
 JADD_MULS = 16  # full Jacobian addition: 11M + 5S
+JDBL_MULS = 7  # Jacobian doubling (jac_dbl, csrc/curve.cuh): 2M + 5S
 FE_BYTES = 32  # one field element in device memory
 
 # Published figures of one NVIDIA H100 SXM.
@@ -47,19 +48,25 @@ PROBE_REPS = 5
 # ---------------------------------------------------------------------------
 
 def bucket_sums_work(n: int, entries: int, buckets_used: int) -> Tuple[int, int]:
-    """K1 on `entries` sorted (window, bucket) entries of `n` points filling
+    """K1 on `entries` live (window, bucket) entries of `n` points filling
     `buckets_used` buckets: one mixed addition per entry beyond the first of
     each bucket; the basis and the entries read once, the used buckets
-    written once."""
+    written once.  The additions that join a run across threads, tiles and
+    levels are overhead and are not counted."""
     ops = (entries - buckets_used) * MADD_MULS * FE_MUL_IMAD
     nbytes = n * 2 * FE_BYTES + entries * 8 + buckets_used * 3 * FE_BYTES
     return ops, nbytes
 
 
-def window_sums_work(windows: int, buckets_per_window: int) -> Tuple[int, int]:
-    """K2: the running-sum reduction is two full additions per bucket."""
-    ops = windows * (buckets_per_window - 1) * 2 * JADD_MULS * FE_MUL_IMAD
-    nbytes = (windows * buckets_per_window + windows) * 3 * FE_BYTES
+def window_sums_work(windows: int, buckets_per_window: int, c: int) -> Tuple[int, int]:
+    """K2: the running-sum reduction is two full additions per bucket; the
+    combine sum_w 2^(c*w) * window_w is W * c doublings and W additions.  The
+    buckets read once, one point written.  The scan of the segment sums and
+    their shares, which join the segments and blocks of a window, are
+    overhead and are not counted."""
+    ops = (windows * (buckets_per_window - 1) * 2 * JADD_MULS
+           + windows * c * JDBL_MULS + windows * JADD_MULS) * FE_MUL_IMAD
+    nbytes = (windows * buckets_per_window + 1) * 3 * FE_BYTES
     return ops, nbytes
 
 
@@ -85,17 +92,17 @@ def chain_work(n: int, chain: int) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 def msm_mul_ops(entries: int, buckets_used: int, windows: int,
-                buckets_per_window: int) -> int:
-    """Multiply-adds of one MSM through K1 and K2 (the host window combine is
-    c doublings per window and is not counted)."""
+                buckets_per_window: int, c: int) -> int:
+    """Multiply-adds of one MSM through K1 and K2 (the window combine
+    included)."""
     return (bucket_sums_work(0, entries, buckets_used)[0]
-            + window_sums_work(windows, buckets_per_window)[0])
+            + window_sums_work(windows, buckets_per_window, c)[0])
 
 
 def msm_hbm_bytes(n: int, entries: int, buckets_used: int, windows: int,
-                  buckets_per_window: int) -> int:
+                  buckets_per_window: int, c: int) -> int:
     return (bucket_sums_work(n, entries, buckets_used)[1]
-            + window_sums_work(windows, buckets_per_window)[1])
+            + window_sums_work(windows, buckets_per_window, c)[1])
 
 
 def expression_mul_count(spec, expr, challenges=None) -> int:

@@ -2,9 +2,11 @@
 (csrc/cpu_twin.cpp), against the port's plain torch versions.
 
 This gives the kernels' code tier-1 coverage before a card runs it: the
-field and curve headers, every per-thread body of K1-K4, and the launch
-logic of the wrappers (levels, chunk alignment, compaction), which the tests
-drive through the twin's entry points with CPU tensors.
+field and curve headers, every per-thread body and shared-memory step of
+K1-K4 (a block's threads run one after another between the barriers), and
+the launch logic of the wrappers (K1's levels and carries, K2's levels and
+combine), which the tests drive through the twin's entry points with CPU
+tensors.
 """
 
 import ctypes
@@ -46,8 +48,10 @@ def twin():
     for name in ("twin_jac_madd", "twin_jac_add"):
         getattr(lib, name).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64]
     lib.twin_jac_dbl.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+    kmsm.check_layout(lib)
     build.bind(lib.twin_msm_bucket_level, kmsm.LEVEL_ARGS)
-    build.bind(lib.twin_msm_window_reduce, kmsm.WINDOW_ARGS)
+    build.bind(lib.twin_msm_window_level, kmsm.WINDOW_ARGS)
+    build.bind(lib.twin_msm_window_combine, kmsm.COMBINE_ARGS)
     build.bind(lib.twin_sumcheck_round, ksc.ROUND_ARGS)
     build.bind(lib.twin_sumcheck_fold, ksc.FOLD_ARGS)
     return lib
@@ -116,19 +120,39 @@ def test_curve_ops(twin):
     assert cdev.jac_to_host(C, plain) == [p + q for p, q in zip(ps, qs)]
 
 
-def _msm_inputs(n, seed, skew=False):
+def _msm_inputs(n, seed, kind):
     rng = random.Random(seed)
-    pts = _points(n, seed)
-    scalars = [rng.randrange(C.scalar.p) for _ in range(n)]
-    if skew:  # long runs in few buckets: selector-like scalars
-        scalars = [rng.choice([0, 1, 2, C.scalar.p - 1]) for _ in range(n)]
-    scalars[0] = 0
+    p = C.scalar.p
+    if kind in ("random", "selector"):
+        pts = _points(n, seed)
+    else:  # many points: multiples i * G by running sums on the host
+        g = AffinePoint.generator(C)
+        pts, acc = [], g
+        for _ in range(n):
+            pts.append(acc)
+            acc = acc + g
+        pts[1], pts[2], pts[3] = pts[0], -pts[0], AffinePoint.identity(C)
+    if kind == "selector":  # long runs in few buckets
+        scalars = [rng.choice([0, 1, 2, p - 1]) for _ in range(n)]
+    elif kind == "one_bucket":  # every entry in bucket 1 of window 0
+        scalars = [1] * n
+    elif kind == "equal":  # one bucket per window, n entries each
+        scalars = [rng.randrange(p)] * n
+    elif kind == "zero":
+        scalars = [0] * n
+    else:
+        scalars = [rng.randrange(p) for _ in range(n)]
+    if kind == "identity_points":
+        pts = [AffinePoint.identity(C)] * n
+    if kind in ("random", "selector"):
+        scalars[0] = 0
     return pts, scalars
 
 
-@pytest.mark.parametrize("n,skew", [(40, False), (300, True)])
-def test_msm_kernels_twin(twin, n, skew):
-    pts, scalars = _msm_inputs(n, 5 + n, skew)
+def _twin_msm(twin, pts, scalars):
+    """K1 and K2 through the twin and through the plain versions -> the
+    MSM as a host point (after checking that the two agree)."""
+    n = len(pts)
     bases = cdev.affine_from_host(C, pts, "cpu")
     c = tmsm.window_size(n)
     w = tmsm.num_windows(C, c)
@@ -137,10 +161,68 @@ def test_msm_kernels_twin(twin, n, skew):
     kern = kmsm.bucket_levels(twin.twin_msm_bucket_level, None, bases, keys, src, w * nb)
     assert cdev.jac_to_host(C, kern) == cdev.jac_to_host(C, plain)
     buckets = kern.reshape(w, nb, 3, 8)
-    wplain = kmsm.msm_window_sums_plain(C, buckets)
-    wkern = kmsm.window_launch(twin.twin_msm_window_reduce, None, buckets)
-    assert cdev.jac_to_host(C, wkern) == cdev.jac_to_host(C, wplain)
-    assert tmsm.combine_windows(C, wkern, c) == msm_host(scalars, pts)
+    wplain = kmsm.msm_window_sums_plain(C, buckets, c)
+    wkern = kmsm.window_levels(twin.twin_msm_window_level, twin.twin_msm_window_combine,
+                               None, buckets, c)
+    got = cdev.jac_to_host(C, wkern[None])[0]
+    assert got == cdev.jac_to_host(C, wplain[None])[0]
+    return got, len(kmsm.bucket_level_sizes(keys.numel()))
+
+
+@pytest.mark.parametrize("n,kind", [
+    pytest.param(40, "random", id="40-False"),
+    pytest.param(300, "selector", id="300-True"),
+    pytest.param(4096, "one_bucket", id="4096-one_bucket"),
+    pytest.param(200, "equal", id="200-equal"),
+    pytest.param(200, "zero", id="200-zero"),
+    pytest.param(64, "identity_points", id="64-identity_points"),
+])
+def test_msm_kernels_twin(twin, n, kind):
+    pts, scalars = _msm_inputs(n, 5 + n, kind)
+    got, levels = _twin_msm(twin, pts, scalars)
+    assert levels >= 2  # the carries between tiles are exercised
+    if kind == "one_bucket":
+        want = AffinePoint.identity(C)
+        for p in pts:
+            want = want + p
+    elif kind == "equal":
+        want = AffinePoint.identity(C)
+        for p in pts:
+            want = want + p
+        want = want.scalar_mul(scalars[0])
+    else:
+        want = msm_host(scalars, pts)
+    assert got == want
+    if kind in ("zero", "identity_points"):
+        assert got.is_identity()
+
+
+@pytest.mark.parametrize("windows,c", [(17, 16), (20, 14), (128, 2)])
+def test_msm_window_combine_twin(twin, windows, c):
+    rng = random.Random(windows)
+    g = AffinePoint.generator(C)
+    sums = [g.scalar_mul(rng.randrange(1, C.scalar.p)) for _ in range(windows)]
+    sums[1] = AffinePoint.identity(C)
+    sums[2] = sums[0]
+    jac = _jac(sums)
+    pv = torch.stack([torch.zeros_like(jac), jac], 1).reshape(windows, 1, 2, 3, 8).contiguous()
+    out = torch.empty((3, 8), dtype=torch.int32)
+    assert twin.twin_msm_window_combine(pv.data_ptr(), windows, c, out.data_ptr(), None) == 0
+    want = AffinePoint.identity(C)
+    for s in reversed(sums):
+        for _ in range(c):
+            want = want.double()
+        want = want + s
+    assert cdev.jac_to_host(C, out[None])[0] == want
+    plain = kmsm.msm_window_combine_plain(C, jac, c)
+    assert cdev.jac_to_host(C, plain[None])[0] == want
+
+
+def test_msm_layout_is_checked(twin):
+    kmsm.check_layout(twin)
+    fn = build.bind(twin.msm_check_layout, [ctypes.c_int] * 3)
+    assert fn(kmsm.K1_TILE, kmsm.K2_SEGMENT, kmsm.K2_THREADS) == 0
+    assert fn(kmsm.K1_TILE // 2, kmsm.K2_SEGMENT, kmsm.K2_THREADS) == -1
 
 
 def _state(num_tables, size, seed):

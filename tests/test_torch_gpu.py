@@ -52,8 +52,8 @@ def test_msm_kernels_match_plain(cuda):
     k1 = kmsm.msm_bucket_sums_cuda(C, bases, keys, src, w * nb)
     assert torch.equal(_affine(C, k1), _affine(C, kmsm.msm_bucket_sums_plain(C, bases, keys, src, w * nb)))
     buckets = k1.reshape(w, nb, 3, 8)
-    k2 = kmsm.msm_window_sums_cuda(C, buckets)
-    assert torch.equal(_affine(C, k2), _affine(C, kmsm.msm_window_sums_plain(C, buckets)))
+    k2 = kmsm.msm_window_sums_cuda(C, buckets, c)
+    assert torch.equal(_affine(C, k2[None]), _affine(C, kmsm.msm_window_sums_plain(C, buckets, c)[None]))
 
 
 @pytest.mark.gpu

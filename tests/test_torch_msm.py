@@ -1,5 +1,6 @@
-"""MSM through the plain versions of K1 (bucket sums) and K2 (window sums)
-against the reference ``variable_base_msm`` on its cpp backend, plus the
+"""MSM through the plain versions of K1 (bucket sums) and K2 (window sums
+and their combine) against the reference ``variable_base_msm`` on its cpp
+backend, the one-pass recode against the loop it replaced, plus the
 fixed-base MSM.  Exact equality of affine points."""
 
 import numpy as np
@@ -78,6 +79,72 @@ def test_all_zero_scalars_and_all_identity_points():
     _check(pts, [0] * 16)
     ident = np.asarray(ref_from_affine(REF_G1, [RefAffine.identity(REF_G1)] * 16))
     _check(ident, _scalars(16, 8))
+
+
+@pytest.mark.parametrize("kind", ["ones", "minus_one", "selector"])
+def test_uniform_and_selector_scalars(kind):
+    """Long runs: every entry of a window in one or a few buckets, across
+    K1's tiles and levels (n = 4096)."""
+    n = 4096
+    rng = np.random.default_rng(11)
+    if kind == "ones":
+        scalars = [1] * n
+    elif kind == "minus_one":
+        scalars = [P - 1] * n
+    else:
+        scalars = [[0, 1, 2, P - 1][i] for i in rng.integers(0, 4, size=n)]
+    _check(_ref_points(n, 12), scalars)
+
+
+def _entries_by_loop(scalars, c, windows):
+    """The recode and compaction as they were before the one-pass recode:
+    a loop over the windows, then only the non-zero digits, sorted."""
+    n = scalars.shape[0]
+    v = scalars.to(torch.int64) & 0xFFFFFFFF
+    v = torch.cat([v, torch.zeros((n, 2), dtype=torch.int64)], 1)
+    mask, half = (1 << c) - 1, 1 << (c - 1)
+    carry = torch.zeros(n, dtype=torch.int64)
+    buckets, negs = [], []
+    for w in range(windows):
+        li, sh = (w * c) // 32, (w * c) % 32
+        d = v[:, li] >> sh
+        if sh + c > 32:
+            d = d | (v[:, li + 1] << (32 - sh))
+        d = (d & mask) + carry
+        carry = (d >= half).to(torch.int64)
+        d = d - (carry << c)
+        buckets.append(d.abs())
+        negs.append(d < 0)
+    bucket, neg = torch.stack(buckets), torch.stack(negs)
+    nb = half + 1
+    keys = bucket + torch.arange(windows).unsqueeze(1) * nb
+    src = 2 * torch.arange(n).expand(windows, n) + neg.to(torch.int64)
+    live = bucket != 0
+    return keys[live], src[live]
+
+
+@pytest.mark.parametrize("c", [2, 5, 8, 13, 16])
+@pytest.mark.parametrize("kind", ["random", "skewed", "zero"])
+def test_entries_keep_the_live_digits(kind, c):
+    """msm_entries keeps every digit (zero digits under the sentinel key,
+    which sorts last); its live entries are the loop's, bucket by bucket."""
+    n = 300
+    if kind == "random":
+        scalars = _scalars(n, 13)
+    elif kind == "skewed":
+        scalars = [[0, 1, 2, P - 1, (1 << c) - 1][i % 5] for i in range(n)]
+    else:
+        scalars = [0] * n
+    t = limb.from_ints(scalars)
+    windows = msm.num_windows(BN254_G1, c)
+    keys, src, nb = msm.msm_entries(t, c, windows)
+    assert keys.shape == src.shape == (windows * n,)
+    assert bool((keys[1:] >= keys[:-1]).all())
+    live = keys < windows * nb
+    assert bool((keys[~live] == windows * nb).all())
+    want_keys, want_src = _entries_by_loop(t, c, windows)
+    got = sorted(zip(keys[live].tolist(), src[live].tolist()))
+    assert got == sorted(zip(want_keys.tolist(), want_src.tolist()))
 
 
 def test_fixed_base():

@@ -63,17 +63,20 @@ def test_num_tables_is_the_prover_state(name):
 def test_kernel_counts_by_hand():
     # K1: 10 entries in 4 buckets -> 6 mixed additions of 11 products of 256
     assert roofline.bucket_sums_work(8, 10, 4) == (6 * 11 * 256, 8 * 64 + 10 * 8 + 4 * 96)
-    # K2: 3 windows of 5 buckets -> 2 full additions (16 products) per bucket
-    # beyond bucket 0
-    assert roofline.window_sums_work(3, 5) == (3 * 4 * 2 * 16 * 256, (15 + 3) * 96)
+    # K2: 3 windows of 5 buckets (c = 3) -> 2 full additions (16 products) per
+    # bucket beyond bucket 0, then the combine: 3 * 3 doublings (7 products)
+    # and 3 full additions; the buckets in, one point out
+    k2_ops = (3 * 4 * 2 * 16 + 3 * 3 * 7 + 3 * 16) * 256
+    assert roofline.window_sums_work(3, 5, 3) == (k2_ops, (15 + 1) * 96)
+    assert roofline.JDBL_MULS == 7  # jac_dbl: 5 squarings, 2 products
     # K3 at k = 3, round 0: 4 pairs, degree 5, 22 products, + the identity leaf
     assert roofline.round_work(16, 4, 5, 22) == (4 * (5 * 22 + 1) * 256, 16 * 8 * 32)
     # K4: one product per output; 2 rows in, 1 out
     assert roofline.fold_work(16, 4) == (16 * 4 * 256, 16 * 4 * 96)
     # K5: chain products per element; a, b in, out out
     assert roofline.chain_work(1 << 22, 16) == ((1 << 22) * 16 * 256, (1 << 22) * 96)
-    assert roofline.msm_mul_ops(10, 4, 3, 5) == 6 * 11 * 256 + 3 * 4 * 2 * 16 * 256
-    assert roofline.msm_hbm_bytes(8, 10, 4, 3, 5) == (8 * 64 + 10 * 8 + 4 * 96) + 18 * 96
+    assert roofline.msm_mul_ops(10, 4, 3, 5, 3) == 6 * 11 * 256 + k2_ops
+    assert roofline.msm_hbm_bytes(8, 10, 4, 3, 5, 3) == (8 * 64 + 10 * 8 + 4 * 96) + 16 * 96
 
 
 def test_sumcheck_counts_by_hand_at_k3():

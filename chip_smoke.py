@@ -6,28 +6,37 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. build the CUDA kernels from plonkish_tpu_torch/csrc (registers, shared
-   memory and spills as ptxas reports them) and print the card;
+   memory and spills as ptxas reports them) and, in parallel with them, the
+   sum-check round kernels K3 that kernels/sumcheck_gen.py generates for the
+   expressions this script runs (vanilla PLONK, vanilla PLONK with lookups,
+   a degree-1 single leaf and a wide degree-9 expression of 41 tables, and
+   vanilla PLONK again with an out-of-line fe_mul), with each one's ptxas
+   line and build seconds; the vanilla and lookup kernels must have a
+   0-byte stack frame and no spills; print the card;
 2. every kernel against its plain PyTorch version on the card, on the same
    inputs, exact equality required (MSM K1+K2 at 2^12 points with edge cases,
    at 2^16 random points and at 2^16 selector-like scalars in {0, 1, 2,
    p - 1}; one variable_base_msm at 2^16 enqueued under
    torch.cuda.set_sync_debug_mode("error") up to its one-point read;
-   sum-check round K3 at 2^16 pairs for the vanilla-PLONK expression and a
-   degree-1 single-leaf one, fold K4, the mont_mul chain probe K5 with both
-   multipliers at 2^16 elements);
+   sum-check round K3 for the four expressions at 2^16 pairs and at one
+   pair, fold K4, the mont_mul chain probe K5 with both multipliers at 2^16
+   elements);
 3. the three frozen KZG proofs of tests/golden produced on the card, byte for
    byte, and accepted by the port's verifier;
 4. HyperPlonk over BN254 with multilinear KZG on a random vanilla-PLONK
    circuit at k = 20: setup, preprocess, a warm-up prove, a timed prove with
    its span breakdown and kernel launch counts, verify, and a flipped byte
-   rejected;
+   rejected; the timed prove must build no K3 kernel (the count of
+   generated kernels is printed);
 5. each kernel timed with CUDA events at the shapes of the k = 20 prove (K5
    at 2^22 elements, 16 products deep, both multipliers), beside its plain
    version and the least time the card could take; the operation and byte
    counts are those of plonkish_tpu_torch/roofline.py, and the [peaks] line
    says which multiply-add rate, measured by K5 or assumed, the bounds used;
-   also K1 on selector-like scalars at 2^20 and the whole
-   variable_base_msm at 2^20 and at 2^10 (its fixed cost);
+   also K1 on selector-like scalars at 2^20, the whole variable_base_msm at
+   2^20 and at 2^10 (its fixed cost), K3 with an inlined against an
+   out-of-line fe_mul (time and SASS size), and K3 summed over the 20
+   rounds of the k = 20 zero-check with K4 between rounds;
 6. the bench harness in process (plonkish_tpu_torch.benchmark): the
    zero_check and pcs systems at k = 20, whose rows are read back from
    target/bench_torch/, with the launch counts of all five kernels on that
@@ -41,8 +50,11 @@ and nothing of the JAX package.
 import json
 import os
 import random
+import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 K_FULL = 20
@@ -76,8 +88,14 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 1 build
     t0 = time.time()
-    path = build.build_cuda()
-    log(f"[build] {path.name} in {time.time() - t0:.1f}s")
+    built = {}
+    main_lib = threading.Thread(target=lambda: built.update(path=build.build_cuda()))
+    main_lib.start()
+    k3_kernels = phase1_round_kernels(torch)
+    main_lib.join()
+    if "path" not in built:
+        fail("the kernel library did not build")
+    log(f"[build] {built['path'].name} in {time.time() - t0:.1f}s")
     for line in build.ptxas_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
@@ -90,7 +108,7 @@ def main() -> int:
     phase2_kernels(torch)
     phase3_golden(torch, here)
     main_path, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
-    kernels = phase5_timing(torch, shapes, main_path)
+    kernels = phase5_timing(torch, shapes, main_path, k3_kernels)
     harness_path = phase6_harness(K_FULL, LAUNCHES, reset_launches)
     kernels[-1]["launches"] = harness_path["mont_mul_chain"]
     log(f"[done] {time.time() - t_start:.1f}s")
@@ -155,20 +173,21 @@ def affine_equal(torch, curve, a, b):
                        cdev.jac_to_affine(curve, cdev.unpack_jac(b)))
 
 
-def vanilla_state(torch, num_vars, gen, device="cuda"):
-    """A zero-check prover state of the vanilla-PLONK expression with random
-    tables of the main path's count and size."""
+def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_expression"):
+    """A zero-check prover state of a models.circuits expression (vanilla
+    PLONK unless named) with random tables of the main path's count and
+    size."""
     from plonkish_tpu_torch.fields.host import Fp
     from plonkish_tpu_torch.fields.spec import BN254_FR
     from plonkish_tpu_torch.fields import limb
-    from plonkish_tpu_torch.models.circuits import vanilla_plonk_expression
+    from plonkish_tpu_torch.models import circuits
     from plonkish_tpu_torch.piop.sum_check import (
         EvaluationsProver, ProverState, VirtualPolynomial,
     )
     from plonkish_tpu_torch.poly.multilinear import MLPoly
 
     spec = BN254_FR
-    expr = vanilla_plonk_expression(spec, num_vars)
+    expr = getattr(circuits, name)(spec, num_vars)
     num_polys = 1 + max(q.poly for q in expr.used_query())
     rng = random.Random(7)
     polys = [
@@ -179,6 +198,94 @@ def vanilla_state(torch, num_vars, gen, device="cuda"):
     y = [Fp(rng.randrange(spec.p), spec) for _ in range(num_vars)]
     state = ProverState(spec, num_vars, Fp.zero(spec), VirtualPolynomial(expr, polys, challenges, [y]))
     return state, EvaluationsProver(state)
+
+
+def wide_expression():
+    """41 tables and the identity at degree 9, every table live from the
+    first sum to the second: beyond a fixed register file of 32 registers,
+    40 leaves and degree 8."""
+    from plonkish_tpu_torch.utils import expression as ex
+
+    P = lambda i: ex.Polynomial(ex.Query(i, ex.Rotation(0)))  # noqa: E731
+    n = 41
+    first, second, prod = P(0), P(0) * P(1), P(0)
+    for j in range(1, n):
+        first = first + P(j)
+        second = second + P(j) * P((j + 1) % n)
+    for j in range(1, 6):
+        prod = prod * P(j)
+    return first * second * prod + ex.identity() * P(7), n
+
+
+def remapped_tape(expr, tables):
+    """(instrs, consts tape, num_regs, out_reg) of `expr` over a state of
+    `tables` polynomials, leaf operands remapped to rows as
+    EvaluationsProver does (row `tables` is the identity)."""
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.piop.tape import OP_LOAD, compile_tape
+
+    tape = compile_tape(expr, BN254_FR)
+    rows = {("poly", i, 0): i for i in range(tables)}
+    rows[("identity",)] = tables
+    instrs = tape.instrs.copy()
+    load = instrs[:, 0] == OP_LOAD
+    instrs[load, 1] = [rows[tape.leaf_keys[j]] for j in instrs[load, 1]]
+    return instrs, tape
+
+
+def k3_cases(torch, num_vars, gen, device="cuda"):
+    """K3's arguments (state, instrs, consts, num_regs, out_reg, degree) for
+    the four expressions at 2^(num_vars - 1) pairs; with them the vanilla
+    prover state."""
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.utils import expression as ex
+
+    cases = {}
+    for name, fn in (("vanilla", "vanilla_plonk_expression"),
+                     ("lookup", "vanilla_plonk_with_lookup_expression")):
+        state, prover = zero_check_state(torch, num_vars, gen, device, fn)
+        cases[name] = (state.stacked, prover.instrs, prover.consts, prover.tape.num_regs,
+                       prover.tape.out_reg, state.degree)
+        if name == "vanilla":
+            vanilla = (state, prover)
+    single = cases["vanilla"][0][:1].contiguous()
+    instrs, tape = remapped_tape(ex.Polynomial(ex.Query(0, ex.Rotation(0))), 1)
+    cases["single_leaf"] = (single, instrs, tape.const_rows(BN254_FR, device), tape.num_regs,
+                            tape.out_reg, 1)
+    expr, n = wide_expression()
+    instrs, tape = remapped_tape(expr, n)
+    wide = limb.to_mont(BN254_FR, rand_field(torch, BN254_FR, n << num_vars, gen, device))
+    cases["wide"] = (wide.reshape(n, 1 << num_vars, 8).contiguous(), instrs,
+                     tape.const_rows(BN254_FR, device), tape.num_regs, tape.out_reg,
+                     expr.degree())
+    return cases, vanilla
+
+
+def tape_of(case):
+    """The generator's arguments (instrs, num_regs, out_reg, tables, degree)."""
+    stacked, instrs, _, num_regs, out_reg, degree = case
+    return instrs, num_regs, out_reg, stacked.shape[0], degree
+
+
+def sass_counts(path):
+    """SASS instructions per function of a built library, or None where the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True)
+    if out.returncode != 0:
+        return None
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            counts[cur] += 1
+    return counts
 
 
 def selector_scalars(torch, spec, n, gen, device="cuda"):
@@ -233,6 +340,40 @@ def msm_without_sync(torch, curve, scalars, bases):
     return point
 
 
+# ------------------------------------------------------ 1 K3 builds
+
+def other_variant(sumcheck_gen):
+    return next(v for v in sumcheck_gen.VARIANT_FLAGS if v != sumcheck_gen.DEFAULT_VARIANT)
+
+
+def phase1_round_kernels(torch):
+    """K3 generated and built for every expression this script runs, one nvcc
+    each, all started together (and beside the library's own builds).  The
+    tapes come from small states on the CPU: a kernel depends on the tape's
+    structure, not on the size or the constants' values."""
+    from plonkish_tpu_torch.kernels import sumcheck_gen
+    from plonkish_tpu_torch.piop.tape import OP_MUL
+
+    cases, _ = k3_cases(torch, 4, torch.Generator().manual_seed(3), "cpu")
+    names = [*cases, "vanilla"]
+    variants = [sumcheck_gen.DEFAULT_VARIANT] * len(cases) + [other_variant(sumcheck_gen)]
+    kernels = sumcheck_gen.prebuild([tape_of(cases[n]) for n in names], variants)
+    out = {}
+    for name, variant, kern in zip(names, variants, kernels):
+        instrs, num_regs, _, tables, degree = tape_of(cases[name])
+        log(f"[build] K3 {name}, {variant} fe_mul: {len(instrs)} instructions, "
+            f"{int((instrs[:, 0] == OP_MUL).sum())} products, {num_regs} tape registers, "
+            f"{tables} tables, degree {degree}: built in {kern.build_seconds:.1f}s; "
+            f"{kern.warps} warps a block, {kern.resident} blocks resident; {kern.ptxas}")
+        frame = re.search(r"sc_round_kernel: (\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", kern.ptxas)
+        if (name in ("vanilla", "lookup") and variant == sumcheck_gen.DEFAULT_VARIANT
+                and (frame is None or frame.groups() != ("0", "0", "0") or kern.stack)):
+            fail(f"K3 {name}: ptxas reports a stack frame or spills: {kern.ptxas}")
+        out[(name, variant)] = kern
+    return out
+
+
 # ------------------------------------------------------ 2 kernels vs plain
 
 def phase2_kernels(torch):
@@ -243,10 +384,8 @@ def phase2_kernels(torch):
     from plonkish_tpu_torch.kernels import msm as kmsm
     from plonkish_tpu_torch.kernels import probe as kprobe
     from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.kernels import sumcheck_gen
     from plonkish_tpu_torch.piop.sum_check import identity_params
-    from plonkish_tpu_torch.piop.tape import compile_tape
-    from plonkish_tpu_torch.utils import expression as ex
-    from plonkish_tpu_torch.utils.expression import Query, Rotation
 
     gen = torch.Generator().manual_seed(1)
     for n, kind in ((1 << 12, "edge"), (1 << 16, "random"), (1 << 16, "selector")):
@@ -277,25 +416,21 @@ def phase2_kernels(torch):
             f"{len(kmsm.bucket_level_sizes(keys.numel()))} K1 levels, 0 mismatches{note} "
             f"({time.time() - t0:.1f}s)")
 
-    state, prover = vanilla_state(torch, 17, gen)
+    kernels_before = len(sumcheck_gen.BUILDS)
+    cases, (state, _) = k3_cases(torch, 17, gen)
     ids = identity_params(BN254_FR, 0, state.identity_offset, "cuda")
-    args = (state.stacked, prover.instrs, prover.consts, prover.tape.num_regs,
-            prover.tape.out_reg, state.degree, ids)
-    k3 = ksc.sumcheck_round_cuda(BN254_FR, *args)
-    k3_plain = ksc.sumcheck_round_plain(BN254_FR, *args)
-    if not torch.equal(k3, k3_plain):
-        fail("K3 sumcheck_round differs from its plain version (vanilla expression)")
-    log(f"[kernels] K3 round, vanilla expression, {state.stacked.shape[1] // 2} pairs, "
-        f"{state.stacked.shape[0]} tables, degree {state.degree}: 0 mismatches")
-    leaf = ex.Polynomial(Query(0, Rotation(0)))
-    tape = compile_tape(leaf, BN254_FR)
-    single = state.stacked[:1].contiguous()
-    args1 = (single, tape.instrs, tape.const_rows(BN254_FR, "cuda"), tape.num_regs,
-             tape.out_reg, 1, ids)
-    if not torch.equal(ksc.sumcheck_round_cuda(BN254_FR, *args1),
-                       ksc.sumcheck_round_plain(BN254_FR, *args1)):
-        fail("K3 sumcheck_round differs from its plain version (degree-1 single leaf)")
-    log("[kernels] K3 round, degree-1 single leaf: 0 mismatches")
+    for name, (stacked, instrs, consts, num_regs, out_reg, degree) in cases.items():
+        for part in (stacked, stacked[:, :2].contiguous()):
+            args = (part, instrs, consts, num_regs, out_reg, degree, ids)
+            if not torch.equal(ksc.sumcheck_round_cuda(BN254_FR, *args),
+                               ksc.sumcheck_round_plain(BN254_FR, *args)):
+                fail(f"K3 sumcheck_round differs from its plain version ({name} expression, "
+                     f"{part.shape[1] // 2} pairs)")
+        log(f"[kernels] K3 round, {name} expression, {stacked.shape[0]} tables, degree {degree}, "
+            f"{len(instrs)} instructions: 0 mismatches at {stacked.shape[1] // 2} pairs and at 1 pair")
+    if len(sumcheck_gen.BUILDS) != kernels_before:
+        fail("K3: a state on the card needed another kernel than the same expression's small "
+             "state on the CPU")
     ch = limb.const(BN254_FR, 0x1234567890ABCDEF, "cuda")
     if not torch.equal(ksc.fold_cuda(BN254_FR, state.stacked, ch),
                        ksc.fold_plain(BN254_FR, state.stacked, ch)):
@@ -355,6 +490,7 @@ def phase3_golden(torch, here):
 def phase4_full(torch, k, launches, reset_launches):
     from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
     from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import sumcheck_gen
     from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
     from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
     from plonkish_tpu_torch.utils import timer
@@ -378,9 +514,12 @@ def phase4_full(torch, k, launches, reset_launches):
         f"preprocess {times['preprocess']:.2f}s")
 
     t0 = time.time()
+    kernels_before = len(sumcheck_gen.BUILDS)
     backend.prove(pp, circuit, Keccak256Transcript(BN254_FR))
     torch.cuda.synchronize()
-    log(f"[k={k}] warm-up prove {time.time() - t0:.2f}s")
+    kernels_warm = len(sumcheck_gen.BUILDS)
+    log(f"[k={k}] warm-up prove {time.time() - t0:.2f}s; K3 kernels loaded in this process "
+        f"{kernels_before} before it, {kernels_warm} after it")
 
     timer.set_sync(torch.cuda.synchronize)
     timer.set_enabled(True)
@@ -404,7 +543,10 @@ def phase4_full(torch, k, launches, reset_launches):
         log(f"[k={k}] span {'  ' * depth}{name}: {sec * 1e3:.1f} ms")
     top = sum(s for _, d, s in spans if d == 0)
     log(f"[k={k}] outside top-level spans: {(times['prove'] - top) * 1e3:.1f} ms")
-    log(f"[k={k}] kernel launches in the timed prove: {json.dumps(main_path)}")
+    log(f"[k={k}] kernel launches in the timed prove: {json.dumps(main_path)}; K3 kernels "
+        f"built or loaded in it: {len(sumcheck_gen.BUILDS) - kernels_warm}")
+    if len(sumcheck_gen.BUILDS) != kernels_warm:
+        fail("the timed prove built a K3 kernel: its challenges changed the tape's structure")
     for name in PROVER_KERNELS:
         if main_path[name] <= 0:
             fail(f"kernel {name} was not launched in the k={k} prove")
@@ -427,7 +569,7 @@ def phase4_full(torch, k, launches, reset_launches):
 
 # ------------------------------------------------------ 5 kernel timing
 
-def phase5_timing(torch, shapes, main_path):
+def phase5_timing(torch, shapes, main_path, k3_kernels):
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.curves.specs import BN254_G1
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -435,6 +577,7 @@ def phase5_timing(torch, shapes, main_path):
     from plonkish_tpu_torch.kernels import msm as kmsm
     from plonkish_tpu_torch.kernels import probe as kprobe
     from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.kernels import sumcheck_gen
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.piop.sum_check import identity_params
     from plonkish_tpu_torch.piop.tape import OP_MUL
@@ -480,7 +623,7 @@ def phase5_timing(torch, shapes, main_path):
     log(f"[timing] variable_base_msm at 2^{small}: {msm_small_ms:.3f} ms (the fixed cost "
         "of one MSM)")
 
-    state, prover = vanilla_state(torch, k, gen)
+    state, prover = zero_check_state(torch, k, gen)
     ids = identity_params(BN254_FR, 0, state.identity_offset, "cuda")
     args = (state.stacked, prover.instrs, prover.consts, prover.tape.num_regs,
             prover.tape.out_reg, state.degree, ids)
@@ -498,6 +641,26 @@ def phase5_timing(torch, shapes, main_path):
     n_mul = int((prover.instrs[:, 0] == OP_MUL).sum())
     log(f"[timing] round 0 state: {t_count} tables x 2^{k} rows, tape "
         f"{len(prover.instrs)} instructions ({n_mul} products), degree {state.degree}")
+    # K3 with the tape's products inlined against one out-of-line fe_mul
+    default, other = sumcheck_gen.DEFAULT_VARIANT, other_variant(sumcheck_gen)
+    variant_kernels = {default: sumcheck_gen.kernel(*tape_of(args[:6])),
+                       other: k3_kernels[("vanilla", other)]}
+    stream = torch.cuda.current_stream().cuda_stream
+    variant_ms = {default: k3_ms}
+    variant_ms[other] = cuda_ms(torch, lambda: ksc.round_launch(
+        variant_kernels[other], stream, state.stacked, prover.consts, state.degree, ids), 3)
+    if not torch.equal(ksc.round_launch(variant_kernels[other], stream, state.stacked,
+                                        prover.consts, state.degree, ids),
+                       ksc.sumcheck_round_plain(BN254_FR, *args)):
+        fail(f"K3 with the {other} fe_mul differs from its plain version")
+    for variant, kern in variant_kernels.items():
+        sass = sass_counts(kern.path)
+        size = ("not measured (no cuobjdump)" if sass is None else
+                ", ".join(f"{n} {c}" for n, c in sass.items() if "sc_round_kernel" in n or "sc_mul" in n))
+        log(f"[timing] K3 vanilla round 0 with the {variant} fe_mul: {variant_ms[variant]:.3f} ms; "
+            f"built in {kern.build_seconds:.1f}s; {kern.regs} registers, {kern.stack} bytes of "
+            f"stack, {kern.warps} warps a block, {kern.resident} blocks resident; SASS "
+            f"instructions: {size}")
     # K5: both multipliers over every launch shape at 2^22 elements, 16 deep.
     # The sweep is the one the harness runs once per process; it is taken
     # here outside that cache, so that phase 6 launches the probe itself.
@@ -527,6 +690,37 @@ def phase5_timing(torch, shapes, main_path):
         "K5's own bound uses the assumed rate; K5 is a compute rate (about 8x over "
         "its byte bound)")
 
+    lookup_state, lookup_prover = zero_check_state(
+        torch, k, gen, name="vanilla_plonk_with_lookup_expression")
+    lookup_args = (lookup_state.stacked, lookup_prover.instrs, lookup_prover.consts,
+                   lookup_prover.tape.num_regs, lookup_prover.tape.out_reg,
+                   lookup_state.degree, ids)
+    lookup_ms = cuda_ms(torch, lambda: ksc.sumcheck_round_cuda(BN254_FR, *lookup_args), 3)
+    lookup_kern = sumcheck_gen.kernel(*tape_of(lookup_args[:6]))
+    lookup_muls = int((lookup_prover.instrs[:, 0] == OP_MUL).sum())
+    log(f"[timing] K3 lookup round 0 at 2^{k}: {lookup_ms:.3f} ms ({lookup_state.stacked.shape[0]} "
+        f"tables, {lookup_muls} products; {lookup_kern.warps} warps a block, "
+        f"{lookup_kern.resident} blocks resident; bound "
+        f"{roofline.bound_ms(*roofline.round_work(lookup_state.stacked.shape[0], pairs, lookup_state.degree, lookup_muls), peaks)[0]:.3f} ms)")
+    del lookup_state, lookup_prover, lookup_args
+
+    # K3 over every round of the k = 20 zero-check, K4 between rounds
+    per_round, round_bounds = [], []
+    stacked = state.stacked
+    for r in range(k):
+        ids_r = identity_params(BN254_FR, r, state.identity_offset, "cuda")
+        args_r = (stacked, *args[1:6], ids_r)
+        per_round.append(cuda_ms(torch, lambda: ksc.sumcheck_round_cuda(BN254_FR, *args_r), 3))
+        round_bounds.append(roofline.bound_ms(
+            *roofline.round_work(t_count, stacked.shape[1] // 2, state.degree, n_mul), peaks)[0])
+        if stacked.shape[1] // 2 <= 1 << 12 and not torch.equal(
+                ksc.sumcheck_round_cuda(BN254_FR, *args_r), ksc.sumcheck_round_plain(BN254_FR, *args_r)):
+            fail(f"K3 differs from its plain version at round {r} of the k={k} zero-check")
+        stacked = ksc.fold_cuda(BN254_FR, stacked, ch)
+    log(f"[timing] K3 summed over the {k} rounds of the k={k} zero-check: {sum(per_round):.3f} ms "
+        f"(bound {sum(round_bounds):.3f} ms); round 0 {per_round[0]:.3f} ms (bound "
+        f"{round_bounds[0]:.3f} ms); per round {[round(v, 4) for v in per_round]}")
+
     rows_out = []
     for name, source_file, replaces, ms, plain_ms, err, work in (
         ("msm_bucket_sums", "plonkish_tpu_torch/csrc/msm.cu",
@@ -535,7 +729,7 @@ def phase5_timing(torch, shapes, main_path):
         ("msm_window_sums", "plonkish_tpu_torch/csrc/msm.cu",
          "plonkish_tpu/pallas/msm.py:119", k2_ms, k2_plain_ms, k2_err,
          roofline.window_sums_work(w, nb, c)),
-        ("sumcheck_round", "plonkish_tpu_torch/csrc/sumcheck.cu",
+        ("sumcheck_round", "plonkish_tpu_torch/csrc/sumcheck.cuh",
          "plonkish_tpu/pallas/sumcheck.py:159", k3_ms, k3_plain_ms, k3_err,
          roofline.round_work(t_count, pairs, state.degree, n_mul)),
         ("sumcheck_fold", "plonkish_tpu_torch/csrc/sumcheck.cu",

@@ -1,9 +1,9 @@
 // Host build of the kernels' arithmetic and per-thread bodies, for the CPU
 // tests only (tests/test_torch_csrc_cpu.py): g++ compiles field.cuh,
 // curve.cuh and the __host__ __device__ parts of msm.cu, sumcheck.cu and
-// probe.cu, and
-// each function below runs a kernel's threads one after another.  No entry
-// point of the package loads this library.
+// probe.cu, and each function below runs a kernel's threads one after
+// another.  No entry point of the package loads this library.  K3's
+// generated kernels have their own host builds (kernels/sumcheck_gen.py).
 #include <stdint.h>
 
 #include <vector>
@@ -163,24 +163,6 @@ int twin_msm_window_combine(const uint32_t* pv, int windows, int c, uint32_t* ou
   for (int s = K2_THREADS / 2; s > 0; s >>= 1)
     for (int tid = 0; tid < K2_THREADS; tid++) tree_sum_step(tid, s, V.data());
   jac_store(out, V[0]);
-  return 0;
-}
-
-// K3: every pair, summed in order (the sum mod p does not depend on it).
-int twin_sumcheck_round(const uint32_t* state, int T, int s,
-                        const int32_t* instrs, int n_instr,
-                        const uint32_t* consts, int num_regs, int out_reg,
-                        int degree, const uint32_t* ids, int blocks,
-                        int threads, uint32_t* partial, uint32_t* out,
-                        void* stream) {
-  (void)blocks, (void)threads, (void)partial, (void)stream;
-  if (num_regs > SC_MAX_REGS || T + 1 > SC_MAX_LEAVES || degree > SC_MAX_DEGREE)
-    return -1;
-  Fe acc[SC_MAX_DEGREE];
-  for (int t = 0; t < SC_MAX_DEGREE; t++) acc[t] = fe_zero();
-  for (int64_t i = 0; i < s; i++)
-    round_pair(i, state, T, s, instrs, n_instr, consts, out_reg, degree, ids, acc);
-  for (int t = 0; t < degree; t++) fe_store(out + 8 * t, acc[t]);
   return 0;
 }
 

@@ -9,6 +9,8 @@ from building at once.  There is no fallback: a failed build raises.
 
 ``build_cpu_twin`` compiles the same headers with g++ into a small library
 for the CPU tests of the kernels' arithmetic; no entry point uses it.
+K3's kernels are generated for each expression and built by
+``kernels/sumcheck_gen.py`` with the same flags, lock and g++ twin.
 """
 
 from __future__ import annotations
@@ -45,9 +47,9 @@ def _digest(names) -> str:
 
 
 @contextlib.contextmanager
-def _locked():
+def _locked(name: str = "lock"):
     BUILD.mkdir(parents=True, exist_ok=True)
-    with open(BUILD / "lock", "w") as fh:
+    with open(BUILD / name, "w") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         try:
             yield
@@ -118,20 +120,26 @@ def bind(fn, argtypes):
     return fn
 
 
-def build_cpu_twin() -> pathlib.Path:
-    """g++ build of csrc/cpu_twin.cpp (the headers on the host), for tests."""
+def build_host(src: pathlib.Path, out: pathlib.Path, opt: str = "-O2") -> pathlib.Path:
+    """g++ build of one source (CUDA sources as C++, headers from csrc/) into
+    a shared library at `out`, unless it is there already; for tests."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise FileNotFoundError("g++ not found")
-    names = ["cpu_twin.cpp", "field.cuh", "curve.cuh", *CUDA_SOURCES]
-    out = BUILD / f"libplonkish_cpu_twin_{_digest(names)}.so"
     with _locked():
         if not out.exists():
             tmp = out.with_suffix(".tmp.so")
             subprocess.run(
-                [gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
-                 str(CSRC / "cpu_twin.cpp"), "-o", str(tmp)],
+                [gxx, opt, "-std=c++17", "-shared", "-fPIC", "-x", "c++",
+                 "-I", str(CSRC), str(src), "-o", str(tmp)],
                 check=True, capture_output=True, text=True,
             )
             os.replace(tmp, out)
     return out
+
+
+def build_cpu_twin() -> pathlib.Path:
+    """g++ build of csrc/cpu_twin.cpp (the headers on the host), for tests."""
+    names = ["cpu_twin.cpp", "field.cuh", "curve.cuh", *CUDA_SOURCES]
+    return build_host(CSRC / "cpu_twin.cpp",
+                      BUILD / f"libplonkish_cpu_twin_{_digest(names)}.so")

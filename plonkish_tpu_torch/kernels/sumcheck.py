@@ -3,7 +3,9 @@
 K3 replaces plonkish_tpu/pallas/sumcheck.py::_round_kernel
 (pallas/sumcheck.py:159, launched by ``_round_evals_jit``) and K4 replaces
 ::_fold_kernel (pallas/sumcheck.py:225, launched by ``_fold_tables_jit``).
-The CUDA source is ``csrc/sumcheck.cu`` over ``csrc/field.cuh``.
+K4's CUDA source is ``csrc/sumcheck.cu`` over ``csrc/field.cuh``; K3's
+kernel is generated for each expression tape by ``kernels/sumcheck_gen.py``
+over ``csrc/sumcheck.cuh`` and built at its first use.
 
 State layout: every live table of the prover stacked as Montgomery
 ``int32[T, 2s, 8]`` in natural hypercube order, so a fix_var pair is two
@@ -14,8 +16,8 @@ K3 evaluates a compiled expression tape (piop/tape.py) at every pair for
 t = 1..d, with every leaf at lo + t*(hi - lo), and returns the d sums as
 Montgomery ``int32[d, 8]``.  Leaf operands of OP_LOAD index the stacked rows;
 the operand T selects the identity polynomial, whose value at pair i is
-``base + i * mul + (t - 1) * step`` (``id_params``: mul as raw digits of
-2^(r+1) * R^2 mod p, base and step Montgomery).
+``base + i * mul + (t - 1) * step`` (``id_params``, the rows of int32[3, 8]:
+mul as raw digits of 2^(r+1) * R^2 mod p, base and step Montgomery).
 
 K4 folds every table at once: new[i] = lo + c * (hi - lo).
 """
@@ -32,9 +34,7 @@ from ..fields.spec import BN254_FR, FieldSpec
 from ..piop import tape as tape_mod
 from . import LAUNCHES
 from . import build
-
-ROUND_THREADS = 128
-ROUND_MAX_BLOCKS = 1056  # 8 blocks on each of the card's 132 SMs
+from . import sumcheck_gen
 
 
 def _check_spec(spec: FieldSpec):
@@ -93,36 +93,27 @@ def sumcheck_round_plain(spec, stacked, instrs, consts, num_regs, out_reg,
     return limb.pack(torch.cat(out, dim=1))
 
 
-ROUND_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 FOLD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p]
 
 
-def round_launch(round_fn, stream, stacked, instrs, consts, num_regs, out_reg,
-                 degree, id_params):
-    """Launch K3 through `round_fn` (``sumcheck_round`` or its host twin)."""
+def round_launch(kern, stream, stacked, consts, degree, id_params):
+    """Launch K3 through `kern` (a generated kernel or its host twin)."""
     _check_state(stacked)
+    if degree != kern.degree:
+        raise ValueError(f"the kernel was generated for degree {kern.degree}, not {degree}")
     dev = stacked.device
-    t_count, rows, _ = stacked.shape
-    instrs_t = torch.as_tensor(np.ascontiguousarray(instrs, dtype=np.int32)).to(dev)
+    s = stacked.shape[1] // 2
     consts = consts.to(dev).contiguous()
-    ids = torch.stack([v.to(dev) for v in id_params]).contiguous()
-    s = rows // 2
-    blocks = max(1, min(ROUND_MAX_BLOCKS, -(-s // ROUND_THREADS)))
+    ids = id_params.to(dev).contiguous()
+    # one wave of the card: a grid-stride loop gives every thread its share
+    groups = -(-s // sumcheck_gen.WARP)
+    shares = -(-degree // kern.warps)
+    blocks = max(1, min(groups, kern.resident // shares))
     partial = torch.empty((blocks, degree, 8), dtype=torch.int32, device=dev)
     out = torch.empty((degree, 8), dtype=torch.int32, device=dev)
-    rc = round_fn(stacked.data_ptr(), t_count, s, instrs_t.data_ptr(),
-                  instrs_t.shape[0], consts.data_ptr(), num_regs, out_reg, degree,
-                  ids.data_ptr(), blocks, ROUND_THREADS, partial.data_ptr(),
-                  out.data_ptr(), stream)
-    if rc == -1:
-        raise ValueError(
-            f"tape too large for the round kernel (SC_MAX_* in csrc/sumcheck.cu): "
-            f"{num_regs} registers, degree {degree}, {t_count} tables"
-        )
+    rc = kern.fn(stacked.data_ptr(), s, consts.data_ptr(), ids.data_ptr(), blocks,
+                 kern.warps, partial.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sumcheck_round launch failed: CUDA error {rc}")
     LAUNCHES["sumcheck_round"] += 1
@@ -134,10 +125,9 @@ def sumcheck_round_cuda(spec, stacked, instrs, consts, num_regs, out_reg,
     _check_spec(spec)
     if stacked.device.type != "cuda":
         raise ValueError("state must be a CUDA tensor")
-    fn = build.bind(build.lib().sumcheck_round, ROUND_ARGS)
+    kern = sumcheck_gen.kernel(instrs, num_regs, out_reg, stacked.shape[0], degree)
     stream = torch.cuda.current_stream(stacked.device).cuda_stream
-    return round_launch(fn, stream, stacked, instrs, consts, num_regs, out_reg,
-                        degree, id_params)
+    return round_launch(kern, stream, stacked, consts, degree, id_params)
 
 
 def round_evals(spec, stacked, instrs, consts, num_regs, out_reg, degree,

@@ -28,6 +28,7 @@ from ..fields import limb
 from ..fields.host import Fp, batch_invert
 from ..fields.spec import FieldSpec
 from ..kernels import sumcheck as ksc
+from ..kernels import sumcheck_gen
 from ..poly.multilinear import MLPoly, eq_xy_evals
 from ..utils.bh import BooleanHypercube
 from ..utils.expression import (
@@ -224,14 +225,13 @@ class ProverState:
 
 
 def identity_params(spec: FieldSpec, round_: int, offset: Fp, device):
-    """(mul, base, step) of the identity leaf at this round: value at pair i
-    and t is offset + 2^r + i * 2^(r+1) + (t - 1) * 2^r (eval.rs:233-236)."""
+    """(mul, base, step) of the identity leaf at this round, as the rows of
+    one int32[3, 8] (one upload): value at pair i and t is
+    offset + 2^r + i * 2^(r+1) + (t - 1) * 2^r (eval.rs:233-236)."""
     mul = ((1 << (round_ + 1)) * spec.r2_mod_p) % spec.p
-    return (
-        limb.from_ints([mul], device)[0],
-        limb.const(spec, int(offset) + (1 << round_), device),
-        limb.const(spec, 1 << round_, device),
-    )
+    base = spec.to_mont((int(offset) + (1 << round_)) % spec.p)
+    step = spec.to_mont((1 << round_) % spec.p)
+    return limb.from_ints([mul, base, step], device)
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +318,9 @@ class EvaluationsProver:
         self.tape = t
         self.instrs = instrs
         self.consts = t.const_rows(spec, state.device)
+        if state.stacked.is_cuda:  # build K3 for this tape now, not in round 0
+            sumcheck_gen.kernel(instrs, t.num_regs, t.out_reg, len(state.table_keys),
+                                state.degree)
 
     def prove_round(self, state: ProverState) -> Evaluations:
         spec = state.spec

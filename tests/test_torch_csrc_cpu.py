@@ -3,13 +3,16 @@
 
 This gives the kernels' code tier-1 coverage before a card runs it: the
 field and curve headers, every per-thread body and shared-memory step of
-K1-K4 (a block's threads run one after another between the barriers), and
-the launch logic of the wrappers (K1's levels and carries, K2's levels and
-combine), which the tests drive through the twin's entry points with CPU
-tensors.
+K1, K2 and K4 (a block's threads run one after another between the
+barriers), K3's source as kernels/sumcheck_gen.py generates it for each
+expression (its blocks and lanes one after another), and the launch logic of
+the wrappers (K1's levels and carries, K2's levels and combine, K3's grid),
+which the tests drive through the twins' entry points with CPU tensors.
 """
 
 import ctypes
+import functools
+import operator
 import random
 
 import pytest
@@ -25,8 +28,12 @@ from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
 from plonkish_tpu_torch.kernels import build
 from plonkish_tpu_torch.kernels import msm as kmsm
 from plonkish_tpu_torch.kernels import sumcheck as ksc
+from plonkish_tpu_torch.kernels import sumcheck_gen
+from plonkish_tpu_torch.models import circuits
+from plonkish_tpu_torch.piop import sum_check as sc
 from plonkish_tpu_torch.piop.sum_check import identity_params
 from plonkish_tpu_torch.piop.tape import compile_tape
+from plonkish_tpu_torch.poly.multilinear import MLPoly
 from plonkish_tpu_torch.utils import expression as ex
 from plonkish_tpu_torch.utils.expression import Query, Rotation
 
@@ -52,7 +59,6 @@ def twin():
     build.bind(lib.twin_msm_bucket_level, kmsm.LEVEL_ARGS)
     build.bind(lib.twin_msm_window_level, kmsm.WINDOW_ARGS)
     build.bind(lib.twin_msm_window_combine, kmsm.COMBINE_ARGS)
-    build.bind(lib.twin_sumcheck_round, ksc.ROUND_ARGS)
     build.bind(lib.twin_sumcheck_fold, ksc.FOLD_ARGS)
     return lib
 
@@ -231,39 +237,93 @@ def _state(num_tables, size, seed):
     return limb.from_canonical_ints(BN254_FR, vals).reshape(num_tables, 2 * size, 8)
 
 
-@pytest.mark.parametrize("kind", ["vanilla_like", "single_leaf"])
-def test_sumcheck_round_twin(twin, kind):
+def _wide_expression():
+    """Beyond the limits of the interpreter K3 had before it was generated
+    (32 registers, 40 leaves, degree 8): 41 tables and the identity, degree
+    9, and every table stays live from the first sum to the second."""
     P = lambda i: ex.Polynomial(Query(i, Rotation(0)))  # noqa: E731
-    if kind == "single_leaf":  # degree 1, one leaf: guards the sum's digit weights
-        expr, degree, tables = P(0), 1, 1
-    else:
-        expr = (P(0) * P(1) + P(2) * ex.Constant(7) - P(1)) * P(3) + ex.identity() * P(0)
-        degree, tables = 3, 4
-    tape = compile_tape(expr, BN254_FR)
+    n = 41
+    first = functools.reduce(operator.add, [P(j) for j in range(n)])
+    second = functools.reduce(operator.add, [P(j) * P((j + 1) % n) for j in range(n)])
+    prod = functools.reduce(operator.mul, [P(j) for j in range(6)])
+    return first * second * prod + ex.identity() * P(7), n
+
+
+def _remapped(tape, tables):
+    """The tape's leaf operands as rows of a state of `tables` polynomials
+    (row `tables` is the identity), as EvaluationsProver remaps them."""
     rows = {("poly", i, 0): i for i in range(tables)}
     rows[("identity",)] = tables
     instrs = tape.instrs.copy()
     load = instrs[:, 0] == 4
     instrs[load, 1] = [rows[tape.leaf_keys[j]] for j in instrs[load, 1]]
-    state = _state(tables, 16, 9)
-    ids = identity_params(BN254_FR, 2, Fp(12345, BN254_FR), "cpu")
-    consts = tape.const_rows(BN254_FR, "cpu")
-    want = ksc.sumcheck_round_plain(BN254_FR, state, instrs, consts, tape.num_regs,
-                                    tape.out_reg, degree, ids)
-    got = ksc.round_launch(twin.twin_sumcheck_round, None, state, instrs, consts,
-                           tape.num_regs, tape.out_reg, degree, ids)
+    return instrs
+
+
+ROUND_KINDS = ("vanilla_like", "single_leaf", "lookup", "beyond_limits")
+
+
+def round_case(kind, s, device="cpu"):
+    """K3's arguments (state, instrs, consts, num_regs, out_reg, degree, ids)
+    for one expression at s pairs, from seeds."""
+    P = lambda i: ex.Polynomial(Query(i, Rotation(0)))  # noqa: E731
+    ids = identity_params(BN254_FR, 2, Fp(12345, BN254_FR), device)
+    if kind == "lookup":  # the zero-check of vanilla_plonk_with_lookup_circuit_info
+        num_vars = max(1, (s - 1).bit_length()) + 1
+        expr = circuits.vanilla_plonk_with_lookup_expression(BN254_FR, num_vars)
+        rng = random.Random(s)
+        polys = [MLPoly.from_ints(BN254_FR, [rng.randrange(BN254_FR.p) for _ in range(1 << num_vars)], "cpu")
+                 for _ in range(1 + max(q.poly for q in expr.used_query()))]
+        vp = sc.VirtualPolynomial(expr, polys, [Fp(rng.randrange(BN254_FR.p), BN254_FR) for _ in range(3)],
+                                  [[Fp(rng.randrange(BN254_FR.p), BN254_FR) for _ in range(num_vars)]])
+        state = sc.ProverState(BN254_FR, num_vars, Fp.zero(BN254_FR), vp)
+        prover = sc.EvaluationsProver(state)
+        return (state.stacked[:, : 2 * s].contiguous().to(device), prover.instrs,
+                prover.consts.to(device), prover.tape.num_regs, prover.tape.out_reg,
+                state.degree, ids)
+    if kind == "single_leaf":  # degree 1, one leaf: guards the sum's digit weights
+        expr, tables = P(0), 1
+    elif kind == "vanilla_like":
+        expr = (P(0) * P(1) + P(2) * ex.Constant(7) - P(1)) * P(3) + ex.identity() * P(0)
+        tables = 4
+    else:
+        expr, tables = _wide_expression()
+    tape = compile_tape(expr, BN254_FR)
+    state = _state(tables, s, 9).to(device)
+    return (state, _remapped(tape, tables), tape.const_rows(BN254_FR, device), tape.num_regs,
+            tape.out_reg, expr.degree(), ids)
+
+
+@pytest.fixture(scope="module")
+def round_twin():
+    """K3's generated source built with g++, once per expression structure."""
+    cache = {}
+
+    def get(instrs, num_regs, out_reg, tables, degree):
+        key = sumcheck_gen.structure(instrs, num_regs, out_reg, tables, degree)
+        if key not in cache:
+            try:
+                cache[key] = sumcheck_gen.twin(instrs, num_regs, out_reg, tables, degree)
+            except FileNotFoundError as e:
+                pytest.skip(f"no host C++ compiler: {e}")
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("kind,s", [
+    pytest.param(kind, s, id=kind if s == 16 else f"{kind}-s{s}")
+    for kind in ROUND_KINDS for s in (1, 16, 100)
+])
+def test_sumcheck_round_twin(round_twin, kind, s):
+    state, instrs, consts, num_regs, out_reg, degree, ids = round_case(kind, s)
+    if kind == "beyond_limits":
+        assert degree == 9 and num_regs > 32 and state.shape[0] + 1 > 40
+    want = ksc.sumcheck_round_plain(BN254_FR, state, instrs, consts, num_regs,
+                                    out_reg, degree, ids)
+    kern = round_twin(instrs, num_regs, out_reg, state.shape[0], degree)
+    got = ksc.round_launch(kern, None, state, consts, degree, ids)
     assert torch.equal(got, want)
-
-
-def test_sumcheck_round_twin_rejects_large_tape(twin):
-    # the limits live in csrc/sumcheck.cu only; the wrapper reports them
-    tape = compile_tape(ex.Polynomial(Query(0, Rotation(0))), BN254_FR)
-    state = _state(1, 4, 10)
-    ids = identity_params(BN254_FR, 2, Fp(1, BN254_FR), "cpu")
-    with pytest.raises(ValueError, match="tape too large"):
-        ksc.round_launch(twin.twin_sumcheck_round, None, state, tape.instrs,
-                         tape.const_rows(BN254_FR, "cpu"), tape.num_regs,
-                         tape.out_reg, 9, ids)
 
 
 def test_sumcheck_fold_twin(twin):

@@ -83,6 +83,25 @@ def test_sumcheck_kernels_match_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 16, 100, 4096])
+@pytest.mark.parametrize("kind", ["vanilla_like", "single_leaf", "lookup", "beyond_limits"])
+def test_generated_round_kernel_matches_plain(cuda, kind, s):
+    """K3 generated for each expression of tests/test_torch_csrc_cpu.py
+    (the lookup zero-check and a tape beyond a fixed 32-register file among
+    them), on the card against the plain version."""
+    from plonkish_tpu_torch.fields.spec import BN254_FR as S
+    from plonkish_tpu_torch.kernels import LAUNCHES
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from test_torch_csrc_cpu import round_case
+
+    args = round_case(kind, s, cuda)
+    before = LAUNCHES["sumcheck_round"]
+    got = ksc.sumcheck_round_cuda(S, *args)
+    assert LAUNCHES["sumcheck_round"] == before + 1
+    assert torch.equal(got, ksc.sumcheck_round_plain(S, *args))
+
+
+@pytest.mark.gpu
 def test_probe_kernel_matches_plain(cuda):
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR

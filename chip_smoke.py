@@ -9,9 +9,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    memory and spills as ptxas reports them) and, in parallel with them, the
    sum-check round kernels K3 that kernels/sumcheck_gen.py generates for the
    expressions this script runs (vanilla PLONK, vanilla PLONK with lookups,
-   a degree-1 single leaf and a wide degree-9 expression of 41 tables, and
-   vanilla PLONK again with an out-of-line fe_mul), with each one's ptxas
-   line and build seconds; the vanilla and lookup kernels must have a
+   a degree-1 single leaf and a wide degree-9 expression of 41 tables),
+   with each one's ptxas line and build seconds; the vanilla and lookup kernels must have a
    0-byte stack frame and no spills; print the card;
 2. every kernel against its plain PyTorch version on the card, on the same
    inputs, exact equality required (MSM K1+K2 at 2^12 points with edge cases,
@@ -34,9 +33,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    counts are those of plonkish_tpu_torch/roofline.py, and the [peaks] line
    says which multiply-add rate, measured by K5 or assumed, the bounds used;
    also K1 on selector-like scalars at 2^20, the whole variable_base_msm at
-   2^20 and at 2^10 (its fixed cost), K3 with an inlined against an
-   out-of-line fe_mul (time and SASS size), and K3 summed over the 20
-   rounds of the k = 20 zero-check with K4 between rounds;
+   2^20 and at 2^10 (its fixed cost), and K3 summed over the 20 rounds of
+   the k = 20 zero-check with K4 between rounds;
 6. the bench harness in process (plonkish_tpu_torch.benchmark): the
    zero_check and pcs systems at k = 20, whose rows are read back from
    target/bench_torch/, with the launch counts of all five kernels on that
@@ -51,7 +49,6 @@ import json
 import os
 import random
 import re
-import shutil
 import subprocess
 import sys
 import threading
@@ -91,7 +88,7 @@ def main() -> int:
     built = {}
     main_lib = threading.Thread(target=lambda: built.update(path=build.build_cuda()))
     main_lib.start()
-    k3_kernels = phase1_round_kernels(torch)
+    phase1_round_kernels(torch)
     main_lib.join()
     if "path" not in built:
         fail("the kernel library did not build")
@@ -108,7 +105,7 @@ def main() -> int:
     phase2_kernels(torch)
     phase3_golden(torch, here)
     main_path, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
-    kernels = phase5_timing(torch, shapes, main_path, k3_kernels)
+    kernels = phase5_timing(torch, shapes, main_path)
     harness_path = phase6_harness(K_FULL, LAUNCHES, reset_launches)
     kernels[-1]["launches"] = harness_path["mont_mul_chain"]
     log(f"[done] {time.time() - t_start:.1f}s")
@@ -200,46 +197,19 @@ def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_ex
     return state, EvaluationsProver(state)
 
 
-def wide_expression():
-    """41 tables and the identity at degree 9, every table live from the
-    first sum to the second: beyond a fixed register file of 32 registers,
-    40 leaves and degree 8."""
-    from plonkish_tpu_torch.utils import expression as ex
-
-    P = lambda i: ex.Polynomial(ex.Query(i, ex.Rotation(0)))  # noqa: E731
-    n = 41
-    first, second, prod = P(0), P(0) * P(1), P(0)
-    for j in range(1, n):
-        first = first + P(j)
-        second = second + P(j) * P((j + 1) % n)
-    for j in range(1, 6):
-        prod = prod * P(j)
-    return first * second * prod + ex.identity() * P(7), n
-
-
-def remapped_tape(expr, tables):
-    """(instrs, consts tape, num_regs, out_reg) of `expr` over a state of
-    `tables` polynomials, leaf operands remapped to rows as
-    EvaluationsProver does (row `tables` is the identity)."""
-    from plonkish_tpu_torch.fields.spec import BN254_FR
-    from plonkish_tpu_torch.piop.tape import OP_LOAD, compile_tape
-
-    tape = compile_tape(expr, BN254_FR)
-    rows = {("poly", i, 0): i for i in range(tables)}
-    rows[("identity",)] = tables
-    instrs = tape.instrs.copy()
-    load = instrs[:, 0] == OP_LOAD
-    instrs[load, 1] = [rows[tape.leaf_keys[j]] for j in instrs[load, 1]]
-    return instrs, tape
-
-
 def k3_cases(torch, num_vars, gen, device="cuda"):
     """K3's arguments (state, instrs, consts, num_regs, out_reg, degree) for
     the four expressions at 2^(num_vars - 1) pairs; with them the vanilla
     prover state."""
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import sumcheck_gen
+    from plonkish_tpu_torch.piop.tape import compile_tape
     from plonkish_tpu_torch.utils import expression as ex
+
+    def remapped(expr, tables):
+        tape = compile_tape(expr, BN254_FR)
+        return tape.remapped([("poly", i, 0) for i in range(tables)]), tape
 
     cases = {}
     for name, fn in (("vanilla", "vanilla_plonk_expression"),
@@ -250,11 +220,11 @@ def k3_cases(torch, num_vars, gen, device="cuda"):
         if name == "vanilla":
             vanilla = (state, prover)
     single = cases["vanilla"][0][:1].contiguous()
-    instrs, tape = remapped_tape(ex.Polynomial(ex.Query(0, ex.Rotation(0))), 1)
+    instrs, tape = remapped(ex.Polynomial(ex.Query(0, ex.Rotation(0))), 1)
     cases["single_leaf"] = (single, instrs, tape.const_rows(BN254_FR, device), tape.num_regs,
                             tape.out_reg, 1)
-    expr, n = wide_expression()
-    instrs, tape = remapped_tape(expr, n)
+    expr, n = sumcheck_gen.wide_expression()
+    instrs, tape = remapped(expr, n)
     wide = limb.to_mont(BN254_FR, rand_field(torch, BN254_FR, n << num_vars, gen, device))
     cases["wide"] = (wide.reshape(n, 1 << num_vars, 8).contiguous(), instrs,
                      tape.const_rows(BN254_FR, device), tape.num_regs, tape.out_reg,
@@ -266,26 +236,6 @@ def tape_of(case):
     """The generator's arguments (instrs, num_regs, out_reg, tables, degree)."""
     stacked, instrs, _, num_regs, out_reg, degree = case
     return instrs, num_regs, out_reg, stacked.shape[0], degree
-
-
-def sass_counts(path):
-    """SASS instructions per function of a built library, or None where the
-    toolkit has no cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return None
-    out = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True)
-    if out.returncode != 0:
-        return None
-    counts, cur = {}, None
-    for line in out.stdout.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = m.group(1)
-            counts[cur] = 0
-        elif cur and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            counts[cur] += 1
-    return counts
 
 
 def selector_scalars(torch, spec, n, gen, device="cuda"):
@@ -342,10 +292,6 @@ def msm_without_sync(torch, curve, scalars, bases):
 
 # ------------------------------------------------------ 1 K3 builds
 
-def other_variant(sumcheck_gen):
-    return next(v for v in sumcheck_gen.VARIANT_FLAGS if v != sumcheck_gen.DEFAULT_VARIANT)
-
-
 def phase1_round_kernels(torch):
     """K3 generated and built for every expression this script runs, one nvcc
     each, all started together (and beside the library's own builds).  The
@@ -355,23 +301,18 @@ def phase1_round_kernels(torch):
     from plonkish_tpu_torch.piop.tape import OP_MUL
 
     cases, _ = k3_cases(torch, 4, torch.Generator().manual_seed(3), "cpu")
-    names = [*cases, "vanilla"]
-    variants = [sumcheck_gen.DEFAULT_VARIANT] * len(cases) + [other_variant(sumcheck_gen)]
-    kernels = sumcheck_gen.prebuild([tape_of(cases[n]) for n in names], variants)
-    out = {}
-    for name, variant, kern in zip(names, variants, kernels):
+    kernels = sumcheck_gen.prebuild([tape_of(case) for case in cases.values()])
+    for name, kern in zip(cases, kernels):
         instrs, num_regs, _, tables, degree = tape_of(cases[name])
-        log(f"[build] K3 {name}, {variant} fe_mul: {len(instrs)} instructions, "
+        log(f"[build] K3 {name}: {len(instrs)} instructions, "
             f"{int((instrs[:, 0] == OP_MUL).sum())} products, {num_regs} tape registers, "
             f"{tables} tables, degree {degree}: built in {kern.build_seconds:.1f}s; "
             f"{kern.warps} warps a block, {kern.resident} blocks resident; {kern.ptxas}")
         frame = re.search(r"sc_round_kernel: (\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads", kern.ptxas)
-        if (name in ("vanilla", "lookup") and variant == sumcheck_gen.DEFAULT_VARIANT
+        if (name in ("vanilla", "lookup")
                 and (frame is None or frame.groups() != ("0", "0", "0") or kern.stack)):
             fail(f"K3 {name}: ptxas reports a stack frame or spills: {kern.ptxas}")
-        out[(name, variant)] = kern
-    return out
 
 
 # ------------------------------------------------------ 2 kernels vs plain
@@ -569,7 +510,7 @@ def phase4_full(torch, k, launches, reset_launches):
 
 # ------------------------------------------------------ 5 kernel timing
 
-def phase5_timing(torch, shapes, main_path, k3_kernels):
+def phase5_timing(torch, shapes, main_path):
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.curves.specs import BN254_G1
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -641,26 +582,9 @@ def phase5_timing(torch, shapes, main_path, k3_kernels):
     n_mul = int((prover.instrs[:, 0] == OP_MUL).sum())
     log(f"[timing] round 0 state: {t_count} tables x 2^{k} rows, tape "
         f"{len(prover.instrs)} instructions ({n_mul} products), degree {state.degree}")
-    # K3 with the tape's products inlined against one out-of-line fe_mul
-    default, other = sumcheck_gen.DEFAULT_VARIANT, other_variant(sumcheck_gen)
-    variant_kernels = {default: sumcheck_gen.kernel(*tape_of(args[:6])),
-                       other: k3_kernels[("vanilla", other)]}
-    stream = torch.cuda.current_stream().cuda_stream
-    variant_ms = {default: k3_ms}
-    variant_ms[other] = cuda_ms(torch, lambda: ksc.round_launch(
-        variant_kernels[other], stream, state.stacked, prover.consts, state.degree, ids), 3)
-    if not torch.equal(ksc.round_launch(variant_kernels[other], stream, state.stacked,
-                                        prover.consts, state.degree, ids),
-                       ksc.sumcheck_round_plain(BN254_FR, *args)):
-        fail(f"K3 with the {other} fe_mul differs from its plain version")
-    for variant, kern in variant_kernels.items():
-        sass = sass_counts(kern.path)
-        size = ("not measured (no cuobjdump)" if sass is None else
-                ", ".join(f"{n} {c}" for n, c in sass.items() if "sc_round_kernel" in n or "sc_mul" in n))
-        log(f"[timing] K3 vanilla round 0 with the {variant} fe_mul: {variant_ms[variant]:.3f} ms; "
-            f"built in {kern.build_seconds:.1f}s; {kern.regs} registers, {kern.stack} bytes of "
-            f"stack, {kern.warps} warps a block, {kern.resident} blocks resident; SASS "
-            f"instructions: {size}")
+    kern = sumcheck_gen.kernel(*tape_of(args[:6]))
+    log(f"[timing] K3 vanilla round 0: {k3_ms:.3f} ms; {kern.regs} registers, {kern.stack} "
+        f"bytes of stack, {kern.warps} warps a block, {kern.resident} blocks resident")
     # K5: both multipliers over every launch shape at 2^22 elements, 16 deep.
     # The sweep is the one the harness runs once per process; it is taken
     # here outside that cache, so that phase 6 launches the probe itself.

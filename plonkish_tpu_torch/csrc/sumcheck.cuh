@@ -37,15 +37,18 @@ namespace pk {
 constexpr int SC_WARP = 32;
 constexpr int SC_REDUCE_THREADS = 128;
 
-// fe_mul for the tape's products; PK_SC_NOINLINE_MUL makes it one function
-// that every product calls instead of a copy inlined at each.
-#ifdef PK_SC_NOINLINE_MUL
-__host__ __device__ __noinline__ Fe sc_mul(const Fe a, const Fe b) {
+// fe_mul for the tape's products: one out-of-line function that every
+// product calls.  On an H100 it ran faster than a copy inlined at each
+// product, on every tape measured (PERF.md).  g++ has no __noinline__.
+#ifdef __CUDACC__
+#define PK_SC_NOINLINE __noinline__
+#else
+#define PK_SC_NOINLINE __attribute__((noinline))
+#endif
+
+__host__ __device__ PK_SC_NOINLINE Fe sc_mul(const Fe a, const Fe b) {
   return fe_mul<Fr>(a, b);
 }
-#else
-PK_HD Fe sc_mul(const Fe& a, const Fe& b) { return fe_mul<Fr>(a, b); }
-#endif
 
 // lo and hi of one pair: 64 contiguous bytes.
 PK_HD void sc_load_pair(const uint32_t* p, Fe& lo, Fe& hi) {

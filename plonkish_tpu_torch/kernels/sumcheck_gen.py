@@ -26,7 +26,9 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import dataclasses
+import functools
 import hashlib
+import operator
 import os
 import pathlib
 import re
@@ -37,15 +39,11 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from ..piop import tape as tape_mod
+from ..utils import expression as ex
 from . import build
 
 WARP = 32
 HEADERS = ("field.cuh", "sumcheck.cuh")
-# How the tape's products are compiled: "noinline" calls one out-of-line
-# fe_mul, "inline" inlines it at each product.  chip_smoke.py times both; the
-# out-of-line one ran faster on an H100 (PERF.md).
-VARIANT_FLAGS = {"noinline": ["-DPK_SC_NOINLINE_MUL"], "inline": []}
-DEFAULT_VARIANT = "noinline"
 
 ROUND_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -67,7 +65,7 @@ class RoundKernel:
     build_seconds: float = 0.0  # 0.0 when the library was already built
 
 
-_KERNELS: Dict[Tuple, RoundKernel] = {}
+_KERNELS: Dict[Tuple, RoundKernel] = {}  # by structure()
 BUILDS: List[RoundKernel] = []  # every kernel this process loaded, in order
 
 
@@ -145,19 +143,15 @@ def digest(src: str, flags: Sequence[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc_flags(variant: str) -> List[str]:
-    return [*build.NVCC_FLAGS, *VARIANT_FLAGS[variant]]
-
-
-def _paths(src: str, variant: str):
-    tag = digest(src, _nvcc_flags(variant))
+def _paths(src: str):
+    tag = digest(src, build.NVCC_FLAGS)
     return (build.BUILD / f"sc_round_{tag}.cu", build.BUILD / f"libsc_round_{tag}.so",
             build.BUILD / f"libsc_round_{tag}.ptxas.txt")
 
 
 def _kernel_ptxas(log: str) -> str:
-    """What ptxas reports for sc_round_kernel and, in the noinline variant,
-    sc_mul: registers, stack frame, spills."""
+    """What ptxas reports for sc_round_kernel and sc_mul: registers, stack
+    frame, spills."""
     out, subject = [], None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?(?: for|$)",
@@ -189,13 +183,12 @@ def _open(path: pathlib.Path, degree: int, log: str = "", seconds: float = 0.0) 
                        ptxas=_kernel_ptxas(log), build_seconds=seconds)
 
 
-def _nvcc_build(cu: pathlib.Path, lib: pathlib.Path, log: pathlib.Path,
-                variant: str) -> float:
+def _nvcc_build(cu: pathlib.Path, lib: pathlib.Path, log: pathlib.Path) -> float:
     """One nvcc run: source -> shared library, ptxas log kept; its seconds."""
     t0 = time.time()
     tmp = lib.with_suffix(".tmp.so")
     proc = subprocess.run(
-        [build._nvcc(), *_nvcc_flags(variant), "-shared", "-I", str(build.CSRC), str(cu),
+        [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC), str(cu),
          "-o", str(tmp)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
@@ -205,12 +198,11 @@ def _nvcc_build(cu: pathlib.Path, lib: pathlib.Path, log: pathlib.Path,
     return time.time() - t0
 
 
-def prebuild(tapes: Sequence[Tuple], variants: Sequence[str] = None) -> List[RoundKernel]:
-    """Kernels for several tapes (instrs, num_regs, out_reg, tables, degree),
-    each in its variant (the default if none is given); the missing ones are
-    built together, one nvcc for each, all started at once."""
-    variants = variants or [DEFAULT_VARIANT] * len(tapes)
-    keys = [(structure(*t), v) for t, v in zip(tapes, variants)]
+def prebuild(tapes: Sequence[Tuple]) -> List[RoundKernel]:
+    """Kernels for several tapes (instrs, num_regs, out_reg, tables, degree);
+    the missing ones are built together, one nvcc for each, all started at
+    once."""
+    keys = [structure(*t) for t in tapes]
     todo = {}
     for key, t in zip(keys, tapes):
         if key not in _KERNELS:
@@ -219,27 +211,24 @@ def prebuild(tapes: Sequence[Tuple], variants: Sequence[str] = None) -> List[Rou
         with build._locked("lock.sc_round"):
             jobs = {}
             for key, src in todo.items():
-                cu, lib, log = _paths(src, key[1])
+                cu, lib, log = _paths(src)
                 if not lib.exists():
                     _write(cu, src)
                     jobs[key] = (cu, lib, log)
             with concurrent.futures.ThreadPoolExecutor(max(1, len(jobs))) as pool:
-                runs = {key: pool.submit(_nvcc_build, *job, key[1]) for key, job in jobs.items()}
+                runs = {key: pool.submit(_nvcc_build, *job) for key, job in jobs.items()}
                 seconds = {key: run.result() for key, run in runs.items()}
-        for (struct, variant), src in todo.items():
-            _, lib, log = _paths(src, variant)
+        for key, src in todo.items():
+            _, lib, log = _paths(src)
             text = log.read_text() if log.exists() else ""
-            _KERNELS[struct, variant] = _open(lib, struct[-1], text,
-                                              seconds.get((struct, variant), 0.0))
-            BUILDS.append(_KERNELS[struct, variant])
+            _KERNELS[key] = _open(lib, key[-1], text, seconds.get(key, 0.0))
+            BUILDS.append(_KERNELS[key])
     return [_KERNELS[key] for key in keys]
 
 
-def kernel(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
-           variant: str = None) -> RoundKernel:
+def kernel(instrs, num_regs: int, out_reg: int, tables: int, degree: int) -> RoundKernel:
     """The CUDA round kernel of one tape, built at its first use."""
-    return prebuild([(instrs, num_regs, out_reg, tables, degree)],
-                    [variant or DEFAULT_VARIANT])[0]
+    return prebuild([(instrs, num_regs, out_reg, tables, degree)])[0]
 
 
 def twin(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
@@ -255,3 +244,16 @@ def twin(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
         _write(cu, src)
     build.build_host(cu, lib_path, opt)
     return _open(lib_path, degree)
+
+
+def wide_expression():
+    """A tape beyond the limits of the interpreter K3 had before it was
+    generated (32 registers, 40 leaves, degree 8), for the checks of the
+    generated kernel: 41 tables and the identity at degree 9, every table
+    live from the first sum to the second.  Returns (expression, tables)."""
+    P = lambda i: ex.Polynomial(ex.Query(i, ex.Rotation(0)))  # noqa: E731
+    n = 41
+    first = functools.reduce(operator.add, [P(j) for j in range(n)])
+    second = functools.reduce(operator.add, [P(j) * P((j + 1) % n) for j in range(n)])
+    prod = functools.reduce(operator.mul, [P(j) for j in range(6)])
+    return first * second * prod + ex.identity() * P(7), n

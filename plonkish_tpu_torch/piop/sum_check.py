@@ -21,7 +21,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from ..fields import limb
@@ -308,13 +307,7 @@ class EvaluationsProver:
         spec = state.spec
         self.expr = state.expression.simplified(state.challenges)
         t = tape_mod.compile_tape(self.expr, spec)
-        row_of = {k: i for i, k in enumerate(state.table_keys)}
-        row_of[("identity",)] = len(state.table_keys)
-        instrs = t.instrs.copy()
-        is_load = instrs[:, 0] == tape_mod.OP_LOAD
-        instrs[is_load, 1] = np.asarray(
-            [row_of[k] for k in t.leaf_keys], dtype=np.int32
-        )[instrs[is_load, 1]]
+        instrs = t.remapped(state.table_keys)
         self.tape = t
         self.instrs = instrs
         self.consts = t.const_rows(spec, state.device)

@@ -39,6 +39,19 @@ class Tape:  # static argument (tapes are cached one per expression)
         """Montgomery constants as int32[max(1, n), 8]."""
         return limb.from_canonical_ints(spec, list(self.consts) or [0], device)
 
+    def remapped(self, table_keys: Sequence[Tuple]) -> np.ndarray:
+        """``instrs`` with each leaf operand replaced by its row of a stacked
+        state whose rows are ``table_keys``; row ``len(table_keys)``, one past
+        the tables, is the identity leaf.  K3 reads its leaves by these rows."""
+        row_of = {k: i for i, k in enumerate(table_keys)}
+        row_of[("identity",)] = len(table_keys)
+        instrs = self.instrs.copy()
+        is_load = instrs[:, 0] == OP_LOAD
+        instrs[is_load, 1] = np.asarray(
+            [row_of[k] for k in self.leaf_keys], dtype=np.int32
+        )[instrs[is_load, 1]]
+        return instrs
+
 
 def compile_tape(expr, spec: FieldSpec, challenges: Sequence = None) -> Tape:
     """Expression -> register-allocated SSA tape.

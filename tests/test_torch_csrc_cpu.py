@@ -11,8 +11,6 @@ which the tests drive through the twins' entry points with CPU tensors.
 """
 
 import ctypes
-import functools
-import operator
 import random
 
 import pytest
@@ -237,29 +235,6 @@ def _state(num_tables, size, seed):
     return limb.from_canonical_ints(BN254_FR, vals).reshape(num_tables, 2 * size, 8)
 
 
-def _wide_expression():
-    """Beyond the limits of the interpreter K3 had before it was generated
-    (32 registers, 40 leaves, degree 8): 41 tables and the identity, degree
-    9, and every table stays live from the first sum to the second."""
-    P = lambda i: ex.Polynomial(Query(i, Rotation(0)))  # noqa: E731
-    n = 41
-    first = functools.reduce(operator.add, [P(j) for j in range(n)])
-    second = functools.reduce(operator.add, [P(j) * P((j + 1) % n) for j in range(n)])
-    prod = functools.reduce(operator.mul, [P(j) for j in range(6)])
-    return first * second * prod + ex.identity() * P(7), n
-
-
-def _remapped(tape, tables):
-    """The tape's leaf operands as rows of a state of `tables` polynomials
-    (row `tables` is the identity), as EvaluationsProver remaps them."""
-    rows = {("poly", i, 0): i for i in range(tables)}
-    rows[("identity",)] = tables
-    instrs = tape.instrs.copy()
-    load = instrs[:, 0] == 4
-    instrs[load, 1] = [rows[tape.leaf_keys[j]] for j in instrs[load, 1]]
-    return instrs
-
-
 ROUND_KINDS = ("vanilla_like", "single_leaf", "lookup", "beyond_limits")
 
 
@@ -287,10 +262,11 @@ def round_case(kind, s, device="cpu"):
         expr = (P(0) * P(1) + P(2) * ex.Constant(7) - P(1)) * P(3) + ex.identity() * P(0)
         tables = 4
     else:
-        expr, tables = _wide_expression()
+        expr, tables = sumcheck_gen.wide_expression()
     tape = compile_tape(expr, BN254_FR)
     state = _state(tables, s, 9).to(device)
-    return (state, _remapped(tape, tables), tape.const_rows(BN254_FR, device), tape.num_regs,
+    instrs = tape.remapped([("poly", i, 0) for i in range(tables)])
+    return (state, instrs, tape.const_rows(BN254_FR, device), tape.num_regs,
             tape.out_reg, expr.degree(), ids)
 
 

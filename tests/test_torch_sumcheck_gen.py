@@ -18,7 +18,7 @@ from plonkish_tpu_torch.fields import limb
 from plonkish_tpu_torch.fields.host import Fp
 from plonkish_tpu_torch.fields.spec import BN254_FR
 from plonkish_tpu_torch.kernels import sumcheck as ksc
-from plonkish_tpu_torch.kernels import sumcheck_gen
+from plonkish_tpu_torch.kernels import build, sumcheck_gen
 from plonkish_tpu_torch.models import circuits
 from plonkish_tpu_torch.piop import sum_check as sc
 from plonkish_tpu_torch.poly.multilinear import MLPoly
@@ -67,7 +67,7 @@ def test_source_ignores_constant_values(name):
     src2 = sumcheck_gen.source(*_tape_args(s2, p2))
     assert src1.encode() == src2.encode()
     assert sumcheck_gen.structure(*_tape_args(s1, p1)) == sumcheck_gen.structure(*_tape_args(s2, p2))
-    flags = sumcheck_gen._nvcc_flags(sumcheck_gen.DEFAULT_VARIANT)
+    flags = build.NVCC_FLAGS
     assert sumcheck_gen.digest(src1, flags) == sumcheck_gen.digest(src2, flags)
     # straight-line code on named locals: no switch, no register array
     assert "switch" not in src1 and "regs[" not in src1

@@ -6,39 +6,54 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. build the CUDA kernels from plonkish_tpu_torch/csrc (registers, shared
-   memory and spills as ptxas reports them) and, in parallel with them, the
-   sum-check round kernels K3 that kernels/sumcheck_gen.py generates for the
-   expressions this script runs (vanilla PLONK, vanilla PLONK with lookups,
-   a degree-1 single leaf and a wide degree-9 expression of 41 tables),
-   with each one's ptxas line and build seconds; the vanilla and lookup kernels must have a
-   0-byte stack frame and no spills; print the card;
+   memory and spills as ptxas reports them; K1 and K2 for BN254 G1 and
+   Grumpkin G1, K4 over Fr and Fq, the IPA base fold) and, in parallel with
+   them, the sum-check round kernels K3 that kernels/sumcheck_gen.py
+   generates for the expressions this script runs (over Fr: vanilla PLONK,
+   vanilla PLONK with lookups, a degree-1 single leaf and a wide degree-9
+   expression of 41 tables; over Fq: vanilla PLONK and vanilla PLONK with
+   lookups), with each one's ptxas line and build seconds; the vanilla and
+   lookup kernels must have a 0-byte stack frame and no spills; print the
+   card;
 2. every kernel against its plain PyTorch version on the card, on the same
-   inputs, exact equality required (MSM K1+K2 at 2^12 points with edge cases,
-   at 2^16 random points and at 2^16 selector-like scalars in {0, 1, 2,
-   p - 1}; one variable_base_msm at 2^16 enqueued under
+   inputs, exact equality required (MSM K1+K2 on BN254 at 2^12 points with
+   edge cases, at 2^16 random points and at 2^16 selector-like scalars in
+   {0, 1, 2, p - 1}, and on Grumpkin at 2^12 with edge cases and 2^16 at
+   random; one variable_base_msm at 2^16 enqueued under
    torch.cuda.set_sync_debug_mode("error") up to its one-point read;
-   sum-check round K3 for the four expressions at 2^16 pairs and at one
-   pair, fold K4, the mont_mul chain probe K5 with both multipliers at 2^16
-   elements);
-3. the three frozen KZG proofs of tests/golden produced on the card, byte for
-   byte, and accepted by the port's verifier;
+   sum-check round K3 for the four Fr expressions and the two Fq ones at
+   2^16 pairs and at one pair, fold K4 over Fr and Fq, the IPA base fold at
+   2^12 points with identities for xi in {0, 1, q - 1, random}, the
+   mont_mul chain probe K5 with both multipliers at 2^16 elements);
+3. the nine frozen HyperPlonk proofs of tests/golden (KZG k3, k5 and lookup
+   k5; Gemini, Zeromorph, IPA and Hyrax k5; Brakedown k3 and k5) produced on
+   the card, byte for byte, and accepted by the port's verifier;
 4. HyperPlonk over BN254 with multilinear KZG on a random vanilla-PLONK
    circuit at k = 20: setup, preprocess, a warm-up prove, a timed prove with
    its span breakdown and kernel launch counts, verify, and a flipped byte
    rejected; the timed prove must build no K3 kernel (the count of
    generated kernels is printed);
-5. each kernel timed with CUDA events at the shapes of the k = 20 prove (K5
+5. each kernel timed with CUDA events at the shapes of the k = 20 proves (K5
    at 2^22 elements, 16 products deep, both multipliers), beside its plain
    version and the least time the card could take; the operation and byte
    counts are those of plonkish_tpu_torch/roofline.py, and the [peaks] line
    says which multiply-add rate, measured by K5 or assumed, the bounds used;
    also K1 on selector-like scalars at 2^20, the whole variable_base_msm at
    2^20 and at 2^10 (its fixed cost), and K3 summed over the 20 rounds of
-   the k = 20 zero-check with K4 between rounds;
+   the k = 20 zero-check with K4 between rounds; then the Grumpkin K1 and K2
+   at 2^20 points of the IPA basis, K3 and K4 over Fq at the k = 20 shapes
+   and the IPA base fold at 2^19 points;
 6. the bench harness in process (plonkish_tpu_torch.benchmark): the
-   zero_check and pcs systems at k = 20, whose rows are read back from
-   target/bench_torch/, with the launch counts of all five kernels on that
-   path.
+   zero_check and pcs kzg systems at k = 20, whose rows are read back from
+   target/bench_torch/, with the launch counts of the five kernels of that
+   path;
+7. HyperPlonk over BN254 Fq with the multilinear IPA on Grumpkin on a random
+   vanilla-PLONK circuit at k = 20: setup (the basis of 2^20 points hashed
+   to the curve on the card), preprocess, a warm-up prove, a timed prove
+   with its span breakdown and launch counts (K1 and K2 on Grumpkin, K3 and
+   K4 over Fq, the IPA base fold), verify, and a flipped byte rejected; then
+   the harness's pcs system at k = 20 for gemini, zeromorph, hyrax,
+   brakedown and ipa, with the rows read back.
 
 The last three lines of standard output are the kernels JSON line, the card
 as nvidia-smi reports it, and the result line.  The script imports no JAX
@@ -56,6 +71,8 @@ import time
 
 K_FULL = 20
 PROVER_KERNELS = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+IPA_KERNELS = PROVER_KERNELS + ("ipa_base_fold",)
+NEW_PCS = ("gemini", "zeromorph", "hyrax", "brakedown", "ipa")
 
 
 def log(msg):
@@ -107,7 +124,14 @@ def main() -> int:
     main_path, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
     kernels = phase5_timing(torch, shapes, main_path)
     harness_path = phase6_harness(K_FULL, LAUNCHES, reset_launches)
-    kernels[-1]["launches"] = harness_path["mont_mul_chain"]
+    ipa_path = phase7_ipa(torch, K_FULL, LAUNCHES, reset_launches)
+    phase7_harness(K_FULL, LAUNCHES, reset_launches)
+    for row in kernels:  # each kernel's launches on the path that runs it
+        if row["name"] == "mont_mul_chain":
+            row["launches"] = harness_path["mont_mul_chain"]
+        elif row["path"] == "ipa":
+            row["launches"] = ipa_path[row["counter"]]
+        del row["path"], row["counter"]
     log(f"[done] {time.time() - t_start:.1f}s")
 
     print(json.dumps({"kernels": kernels}))
@@ -170,10 +194,11 @@ def affine_equal(torch, curve, a, b):
                        cdev.jac_to_affine(curve, cdev.unpack_jac(b)))
 
 
-def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_expression"):
+def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_expression",
+                     spec=None):
     """A zero-check prover state of a models.circuits expression (vanilla
-    PLONK unless named) with random tables of the main path's count and
-    size."""
+    PLONK unless named) over `spec` (BN254 Fr unless given) with random
+    tables of the main path's count and size."""
     from plonkish_tpu_torch.fields.host import Fp
     from plonkish_tpu_torch.fields.spec import BN254_FR
     from plonkish_tpu_torch.fields import limb
@@ -183,7 +208,7 @@ def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_ex
     )
     from plonkish_tpu_torch.poly.multilinear import MLPoly
 
-    spec = BN254_FR
+    spec = spec or BN254_FR
     expr = getattr(circuits, name)(spec, num_vars)
     num_polys = 1 + max(q.poly for q in expr.used_query())
     rng = random.Random(7)
@@ -198,11 +223,12 @@ def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_ex
 
 
 def k3_cases(torch, num_vars, gen, device="cuda"):
-    """K3's arguments (state, instrs, consts, num_regs, out_reg, degree) for
-    the four expressions at 2^(num_vars - 1) pairs; with them the vanilla
-    prover state."""
+    """K3's arguments (state, instrs, consts, num_regs, out_reg, degree) with
+    the field, keyed (field name, expression), at 2^(num_vars - 1) pairs: the
+    four Fr expressions and the vanilla and lookup ones over Fq; with them
+    the vanilla prover state over Fr."""
     from plonkish_tpu_torch.fields import limb
-    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
     from plonkish_tpu_torch.kernels import sumcheck_gen
     from plonkish_tpu_torch.piop.tape import compile_tape
     from plonkish_tpu_torch.utils import expression as ex
@@ -212,30 +238,34 @@ def k3_cases(torch, num_vars, gen, device="cuda"):
         return tape.remapped([("poly", i, 0) for i in range(tables)]), tape
 
     cases = {}
-    for name, fn in (("vanilla", "vanilla_plonk_expression"),
-                     ("lookup", "vanilla_plonk_with_lookup_expression")):
-        state, prover = zero_check_state(torch, num_vars, gen, device, fn)
-        cases[name] = (state.stacked, prover.instrs, prover.consts, prover.tape.num_regs,
-                       prover.tape.out_reg, state.degree)
-        if name == "vanilla":
-            vanilla = (state, prover)
-    single = cases["vanilla"][0][:1].contiguous()
+    for spec in (BN254_FR, BN254_FQ):
+        for name, fn in (("vanilla", "vanilla_plonk_expression"),
+                         ("lookup", "vanilla_plonk_with_lookup_expression")):
+            state, prover = zero_check_state(torch, num_vars, gen, device, fn, spec)
+            cases[(spec.name, name)] = (state.stacked, prover.instrs, prover.consts,
+                                        prover.tape.num_regs, prover.tape.out_reg, state.degree,
+                                        spec)
+            if (spec, name) == (BN254_FR, "vanilla"):
+                vanilla = (state, prover)
+    fr = BN254_FR.name
+    single = cases[(fr, "vanilla")][0][:1].contiguous()
     instrs, tape = remapped(ex.Polynomial(ex.Query(0, ex.Rotation(0))), 1)
-    cases["single_leaf"] = (single, instrs, tape.const_rows(BN254_FR, device), tape.num_regs,
-                            tape.out_reg, 1)
+    cases[(fr, "single_leaf")] = (single, instrs, tape.const_rows(BN254_FR, device),
+                                  tape.num_regs, tape.out_reg, 1, BN254_FR)
     expr, n = sumcheck_gen.wide_expression()
     instrs, tape = remapped(expr, n)
     wide = limb.to_mont(BN254_FR, rand_field(torch, BN254_FR, n << num_vars, gen, device))
-    cases["wide"] = (wide.reshape(n, 1 << num_vars, 8).contiguous(), instrs,
-                     tape.const_rows(BN254_FR, device), tape.num_regs, tape.out_reg,
-                     expr.degree())
+    cases[(fr, "wide")] = (wide.reshape(n, 1 << num_vars, 8).contiguous(), instrs,
+                           tape.const_rows(BN254_FR, device), tape.num_regs, tape.out_reg,
+                           expr.degree(), BN254_FR)
     return cases, vanilla
 
 
 def tape_of(case):
-    """The generator's arguments (instrs, num_regs, out_reg, tables, degree)."""
-    stacked, instrs, _, num_regs, out_reg, degree = case
-    return instrs, num_regs, out_reg, stacked.shape[0], degree
+    """The generator's arguments (instrs, num_regs, out_reg, tables, degree,
+    spec)."""
+    stacked, instrs, _, num_regs, out_reg, degree, spec = case
+    return instrs, num_regs, out_reg, stacked.shape[0], degree, spec
 
 
 def selector_scalars(torch, spec, n, gen, device="cuda"):
@@ -247,16 +277,17 @@ def selector_scalars(torch, spec, n, gen, device="cuda"):
     return table[torch.randint(0, 4, (n,), generator=gen).to(device)].contiguous()
 
 
-def msm_inputs(torch, n, gen, kind):
-    """(curve, bases, scalars) of n points: multiples of G by random scalars.
-    kind "edge": repeated points, opposite points, identities and zero
-    scalars; "selector": selector-like scalars; "random": nothing more."""
+def msm_inputs(torch, n, gen, kind, curve=None):
+    """(curve, bases, scalars) of n points on `curve` (BN254 G1 unless
+    given): multiples of G by random scalars.  kind "edge": repeated points,
+    opposite points, identities and zero scalars; "selector": selector-like
+    scalars; "random": nothing more."""
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.curves.host import AffinePoint
     from plonkish_tpu_torch.curves.specs import BN254_G1
     from plonkish_tpu_torch.fields import limb
 
-    curve = BN254_G1
+    curve = curve or BN254_G1
     s = limb.to_mont(curve.scalar, rand_field(torch, curve.scalar, n, gen))
     bases = tmsm.fixed_base_msm(curve, AffinePoint.generator(curve), s)
     scalars = rand_field(torch, curve.scalar, n, gen)
@@ -272,6 +303,19 @@ def msm_inputs(torch, n, gen, kind):
         scalars[16:24] = scalars[24]  # one bucket per window takes 9 points
         scalars[40:48, 1:] = 0  # small scalars
     return curve, bases, scalars
+
+
+def timed_once(torch, fn):
+    """(ms of one call by CUDA events, its result): for plain versions that
+    take seconds at full size."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def msm_without_sync(torch, curve, scalars, bases):
@@ -302,9 +346,9 @@ def phase1_round_kernels(torch):
 
     cases, _ = k3_cases(torch, 4, torch.Generator().manual_seed(3), "cpu")
     kernels = sumcheck_gen.prebuild([tape_of(case) for case in cases.values()])
-    for name, kern in zip(cases, kernels):
-        instrs, num_regs, _, tables, degree = tape_of(cases[name])
-        log(f"[build] K3 {name}: {len(instrs)} instructions, "
+    for (field, name), kern in zip(cases, kernels):
+        instrs, num_regs, _, tables, degree, _ = tape_of(cases[(field, name)])
+        log(f"[build] K3 {name} over {field}: {len(instrs)} instructions, "
             f"{int((instrs[:, 0] == OP_MUL).sum())} products, {num_regs} tape registers, "
             f"{tables} tables, degree {degree}: built in {kern.build_seconds:.1f}s; "
             f"{kern.warps} warps a block, {kern.resident} blocks resident; {kern.ptxas}")
@@ -312,7 +356,7 @@ def phase1_round_kernels(torch):
                           r"(\d+) bytes spill loads", kern.ptxas)
         if (name in ("vanilla", "lookup")
                 and (frame is None or frame.groups() != ("0", "0", "0") or kern.stack)):
-            fail(f"K3 {name}: ptxas reports a stack frame or spills: {kern.ptxas}")
+            fail(f"K3 {name} over {field}: ptxas reports a stack frame or spills: {kern.ptxas}")
 
 
 # ------------------------------------------------------ 2 kernels vs plain
@@ -320,8 +364,10 @@ def phase1_round_kernels(torch):
 def phase2_kernels(torch):
     from plonkish_tpu_torch.curves import device as cdev
     from plonkish_tpu_torch.curves import msm as tmsm
+    from plonkish_tpu_torch.curves.specs import BN254_G1, GRUMPKIN_G1
     from plonkish_tpu_torch.fields import limb
-    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from plonkish_tpu_torch.kernels import ipa as kipa
     from plonkish_tpu_torch.kernels import msm as kmsm
     from plonkish_tpu_torch.kernels import probe as kprobe
     from plonkish_tpu_torch.kernels import sumcheck as ksc
@@ -329,55 +375,80 @@ def phase2_kernels(torch):
     from plonkish_tpu_torch.piop.sum_check import identity_params
 
     gen = torch.Generator().manual_seed(1)
-    for n, kind in ((1 << 12, "edge"), (1 << 16, "random"), (1 << 16, "selector")):
+    for n, kind, msm_curve in ((1 << 12, "edge", BN254_G1), (1 << 16, "random", BN254_G1),
+                               (1 << 16, "selector", BN254_G1), (1 << 12, "edge", GRUMPKIN_G1),
+                               (1 << 16, "random", GRUMPKIN_G1)):
         t0 = time.time()
-        curve, bases, scalars = msm_inputs(torch, n, gen, kind)
+        curve, bases, scalars = msm_inputs(torch, n, gen, kind, msm_curve)
         c = tmsm.window_size(n)
         w = tmsm.num_windows(curve, c)
         keys, src, nb = tmsm.msm_entries(scalars, c, w)
         k1 = kmsm.msm_bucket_sums_cuda(curve, bases, keys, src, w * nb)
         k1_plain = kmsm.msm_bucket_sums_plain(curve, bases, keys, src, w * nb)
         if not affine_equal(torch, curve, k1, k1_plain):
-            fail(f"K1 msm_bucket_sums differs from its plain version at n={n} ({kind})")
+            fail(f"K1 msm_bucket_sums differs from its plain version on {curve.name} at n={n} "
+                 f"({kind})")
         buckets = k1.reshape(w, nb, 3, 8)
         k2 = kmsm.msm_window_sums_cuda(curve, buckets, c)
         k2_plain = kmsm.msm_window_sums_plain(curve, buckets, c)
         if not affine_equal(torch, curve, k2[None], k2_plain[None]):
-            fail(f"K2 msm_window_sums differs from its plain version at n={n} ({kind})")
+            fail(f"K2 msm_window_sums differs from its plain version on {curve.name} at n={n} "
+                 f"({kind})")
         want = cdev.jac_to_host(curve, k2_plain[None].cpu())[0]
         if tmsm.variable_base_msm(curve, scalars, bases) != want:
-            fail(f"variable_base_msm differs from the plain K1 + K2 at n={n} ({kind})")
+            fail(f"variable_base_msm differs from the plain K1 + K2 on {curve.name} at n={n} "
+                 f"({kind})")
         note = ""
         if kind == "selector":
             point = msm_without_sync(torch, curve, scalars, bases)
             if cdev.jac_to_host(curve, point[None].cpu())[0] != want:
                 fail(f"variable_base_msm under the sync check differs at n={n}")
             note = "; enqueued with no synchronisation before its one-point read"
-        log(f"[kernels] K1+K2 MSM n={n} {kind}: {w * nb} buckets, {keys.numel()} entries, "
+        log(f"[kernels] K1+K2 MSM {curve.name} n={n} {kind}: {w * nb} buckets, "
+            f"{keys.numel()} entries, "
             f"{len(kmsm.bucket_level_sizes(keys.numel()))} K1 levels, 0 mismatches{note} "
             f"({time.time() - t0:.1f}s)")
 
     kernels_before = len(sumcheck_gen.BUILDS)
     cases, (state, _) = k3_cases(torch, 17, gen)
-    ids = identity_params(BN254_FR, 0, state.identity_offset, "cuda")
-    for name, (stacked, instrs, consts, num_regs, out_reg, degree) in cases.items():
+    for (field, name), (stacked, instrs, consts, num_regs, out_reg, degree, spec) in cases.items():
+        ids = identity_params(spec, 0, state.identity_offset, "cuda")
         for part in (stacked, stacked[:, :2].contiguous()):
             args = (part, instrs, consts, num_regs, out_reg, degree, ids)
-            if not torch.equal(ksc.sumcheck_round_cuda(BN254_FR, *args),
-                               ksc.sumcheck_round_plain(BN254_FR, *args)):
-                fail(f"K3 sumcheck_round differs from its plain version ({name} expression, "
-                     f"{part.shape[1] // 2} pairs)")
-        log(f"[kernels] K3 round, {name} expression, {stacked.shape[0]} tables, degree {degree}, "
-            f"{len(instrs)} instructions: 0 mismatches at {stacked.shape[1] // 2} pairs and at 1 pair")
+            if not torch.equal(ksc.sumcheck_round_cuda(spec, *args),
+                               ksc.sumcheck_round_plain(spec, *args)):
+                fail(f"K3 sumcheck_round differs from its plain version ({name} expression "
+                     f"over {field}, {part.shape[1] // 2} pairs)")
+        log(f"[kernels] K3 round, {name} expression over {field}, {stacked.shape[0]} tables, "
+            f"degree {degree}, {len(instrs)} instructions: 0 mismatches at "
+            f"{stacked.shape[1] // 2} pairs and at 1 pair")
     if len(sumcheck_gen.BUILDS) != kernels_before:
         fail("K3: a state on the card needed another kernel than the same expression's small "
              "state on the CPU")
-    ch = limb.const(BN254_FR, 0x1234567890ABCDEF, "cuda")
-    if not torch.equal(ksc.fold_cuda(BN254_FR, state.stacked, ch),
-                       ksc.fold_plain(BN254_FR, state.stacked, ch)):
-        fail("K4 sumcheck_fold differs from its plain version")
-    log(f"[kernels] K4 fold, {state.stacked.shape[0]} tables x {state.stacked.shape[1]} rows: "
-        "0 mismatches")
+    for spec, stacked in ((BN254_FR, state.stacked),
+                          (BN254_FQ, cases[(BN254_FQ.name, "vanilla")][0])):
+        ch = limb.const(spec, 0x1234567890ABCDEF, "cuda")
+        if not torch.equal(ksc.fold_cuda(spec, stacked, ch), ksc.fold_plain(spec, stacked, ch)):
+            fail(f"K4 sumcheck_fold differs from its plain version over {spec.name}")
+        log(f"[kernels] K4 fold over {spec.name}, {stacked.shape[0]} tables x {stacked.shape[1]} "
+            "rows: 0 mismatches")
+
+    # the IPA base fold: identities among L and R, xi at its edges
+    t0 = time.time()
+    gc = GRUMPKIN_G1
+    _, pts, _ = msm_inputs(torch, 1 << 13, gen, "random", gc)
+    pts[5:9] = 0
+    pts[(1 << 12) + 7: (1 << 12) + 11] = 0
+    left, right = pts[: 1 << 12].contiguous(), pts[1 << 12:].contiguous()
+    right[20] = left[20]  # L + R with L = R
+    xis = (0, 1, gc.scalar.p - 1, random.Random(5).randrange(gc.scalar.p))
+    for xi in xis:
+        if not torch.equal(kipa.base_fold_cuda(gc, left, right, xi),
+                           kipa.base_fold_plain(gc, left, right, xi)):
+            fail(f"the IPA base fold differs from its plain version for xi of "
+                 f"{xi.bit_length()} bits")
+    log(f"[kernels] IPA base fold, {left.shape[0]} points with identities, xi in 0, 1, q - 1 "
+        f"and at random: 0 mismatches ({time.time() - t0:.1f}s)")
 
     a, b = probe_inputs(torch, BN254_FR, 1 << 16, gen)
     want = kprobe.mont_mul_chain_plain(BN254_FR, a, b, 16, "u32")
@@ -402,27 +473,42 @@ def phase3_golden(torch, here):
     from plonkish_tpu_torch.models.circuits import (
         rand_vanilla_plonk_circuit, rand_vanilla_plonk_with_lookup_circuit,
     )
+    from plonkish_tpu_torch.pcs.brakedown import MultilinearBrakedown
+    from plonkish_tpu_torch.pcs.brakedown_code import BRAKEDOWN_SPEC_TEST
+    from plonkish_tpu_torch.pcs.gemini import Gemini
+    from plonkish_tpu_torch.pcs.hyrax import MultilinearHyrax
+    from plonkish_tpu_torch.pcs.ipa import MultilinearIpa
     from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+    from plonkish_tpu_torch.pcs.zeromorph import Zeromorph
     from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
 
-    for name, k, fn in (
-        ("hyperplonk_kzg_k3", 3, rand_vanilla_plonk_circuit),
-        ("hyperplonk_kzg_k5", 5, rand_vanilla_plonk_circuit),
-        ("hyperplonk_kzg_lookup_k5", 5, rand_vanilla_plonk_with_lookup_circuit),
+    brakedown = lambda: MultilinearBrakedown(BN254_FR, BRAKEDOWN_SPEC_TEST)  # noqa: E731
+    for name, k, fn, make_pcs in (
+        ("hyperplonk_kzg_k3", 3, rand_vanilla_plonk_circuit, MultilinearKzg),
+        ("hyperplonk_kzg_k5", 5, rand_vanilla_plonk_circuit, MultilinearKzg),
+        ("hyperplonk_kzg_lookup_k5", 5, rand_vanilla_plonk_with_lookup_circuit, MultilinearKzg),
+        ("hyperplonk_gemini_k5", 5, rand_vanilla_plonk_circuit, Gemini),
+        ("hyperplonk_zeromorph_k5", 5, rand_vanilla_plonk_circuit, Zeromorph),
+        ("hyperplonk_ipa_k5", 5, rand_vanilla_plonk_circuit, MultilinearIpa),
+        ("hyperplonk_hyrax_k5", 5, rand_vanilla_plonk_circuit, MultilinearHyrax),
+        ("hyperplonk_brakedown_k3", 3, rand_vanilla_plonk_circuit, brakedown),
+        ("hyperplonk_brakedown_k5", 5, rand_vanilla_plonk_circuit, brakedown),
     ):
         t0 = time.time()
-        ci, circuit = fn(BN254_FR, k, random.Random(1), random.Random(2))
-        backend = HyperPlonk(MultilinearKzg())
+        pcs = make_pcs()
+        spec = pcs.field_spec
+        ci, circuit = fn(spec, k, random.Random(1), random.Random(2))
+        backend = HyperPlonk(pcs)
         param = backend.setup(ci, random.Random(0))
         pp, vp = backend.preprocess(param, ci)
-        tr = Keccak256Transcript(BN254_FR)
+        tr = Keccak256Transcript(spec)
         backend.prove(pp, circuit, tr)
         proof = tr.into_proof()
         with open(os.path.join(here, "tests", "golden", f"{name}.bin"), "rb") as fh:
             want = fh.read()
         if proof != want:
             fail(f"golden proof {name} differs on the card")
-        backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(BN254_FR, proof))
+        backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(spec, proof))
         log(f"[golden] {name}: {len(proof)} bytes equal, verified ({time.time() - t0:.1f}s)")
 
 
@@ -582,7 +668,7 @@ def phase5_timing(torch, shapes, main_path):
     n_mul = int((prover.instrs[:, 0] == OP_MUL).sum())
     log(f"[timing] round 0 state: {t_count} tables x 2^{k} rows, tape "
         f"{len(prover.instrs)} instructions ({n_mul} products), degree {state.degree}")
-    kern = sumcheck_gen.kernel(*tape_of(args[:6]))
+    kern = sumcheck_gen.kernel(*tape_of((*args[:6], BN254_FR)))
     log(f"[timing] K3 vanilla round 0: {k3_ms:.3f} ms; {kern.regs} registers, {kern.stack} "
         f"bytes of stack, {kern.warps} warps a block, {kern.resident} blocks resident")
     # K5: both multipliers over every launch shape at 2^22 elements, 16 deep.
@@ -620,7 +706,7 @@ def phase5_timing(torch, shapes, main_path):
                    lookup_prover.tape.num_regs, lookup_prover.tape.out_reg,
                    lookup_state.degree, ids)
     lookup_ms = cuda_ms(torch, lambda: ksc.sumcheck_round_cuda(BN254_FR, *lookup_args), 3)
-    lookup_kern = sumcheck_gen.kernel(*tape_of(lookup_args[:6]))
+    lookup_kern = sumcheck_gen.kernel(*tape_of((*lookup_args[:6], BN254_FR)))
     lookup_muls = int((lookup_prover.instrs[:, 0] == OP_MUL).sum())
     log(f"[timing] K3 lookup round 0 at 2^{k}: {lookup_ms:.3f} ms ({lookup_state.stacked.shape[0]} "
         f"tables, {lookup_muls} products; {lookup_kern.warps} warps a block, "
@@ -644,6 +730,8 @@ def phase5_timing(torch, shapes, main_path):
     log(f"[timing] K3 summed over the {k} rounds of the k={k} zero-check: {sum(per_round):.3f} ms "
         f"(bound {sum(round_bounds):.3f} ms); round 0 {per_round[0]:.3f} ms (bound "
         f"{round_bounds[0]:.3f} ms); per round {[round(v, 4) for v in per_round]}")
+
+    new_rows = timing_new_instantiations(torch, k, gen, peaks)
 
     rows_out = []
     for name, source_file, replaces, ms, plain_ms, err, work in (
@@ -672,12 +760,112 @@ def phase5_timing(torch, shapes, main_path):
             "name": name, "route": "cuda", "source": source_file, "replaces": replaces,
             "launches": main_path[name], "max_abs_err": 0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": None, "path": "kzg", "counter": name,
         })
         extra = f", f32 variant {k5_f32_ms:.3f} ms" if own else ""
         log(f"[timing] {name}: {ms:.3f} ms{extra} (plain {plain_ms:.1f} ms, bound "
             f"{b_ms:.3f} ms by {b_by} at the {b_src} rate), {main_path[name]} launches "
             "in the prove")
+    return rows_out + new_rows
+
+
+def timing_new_instantiations(torch, k, gen, peaks):
+    """K1 and K2 on Grumpkin at 2^k points of the IPA basis, K3 and K4 over
+    Fq at the k-variable zero-check's shapes, and the IPA base fold at
+    2^(k-1) points: each against its plain version, with its bound.  Rows of
+    the kernels line; their launches are read on the IPA path (phase 7)."""
+    from plonkish_tpu_torch import roofline
+    from plonkish_tpu_torch.curves import msm as tmsm
+    from plonkish_tpu_torch.curves.specs import GRUMPKIN_G1
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FQ
+    from plonkish_tpu_torch.kernels import ipa as kipa
+    from plonkish_tpu_torch.kernels import msm as kmsm
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.pcs.ipa import MultilinearIpa
+    from plonkish_tpu_torch.piop.sum_check import identity_params
+    from plonkish_tpu_torch.piop.tape import OP_MUL
+
+    curve = GRUMPKIN_G1
+    n = 1 << k
+    t0 = time.time()
+    bases = MultilinearIpa().setup(n, 0).g  # the setup of phase 7, kept by the process
+    torch.cuda.synchronize()
+    log(f"[timing] IPA setup: {n} points hashed to Grumpkin in {time.time() - t0:.1f}s")
+    scalars = rand_field(torch, curve.scalar, n, gen)
+    c = tmsm.window_size(n)
+    w = tmsm.num_windows(curve, c)
+    keys, src, nb = tmsm.msm_entries(scalars, c, w)
+    m = int((keys < w * nb).sum())
+    live = keys[:m]
+    unique = int((live[1:] != live[:-1]).sum()) + 1 if m else 0
+    k1_ms = cuda_ms(torch, lambda: kmsm.msm_bucket_sums_cuda(curve, bases, keys, src, w * nb), 3)
+    buckets = kmsm.msm_bucket_sums_cuda(curve, bases, keys, src, w * nb)
+    k1_plain_ms, k1_plain = timed_once(
+        torch, lambda: kmsm.msm_bucket_sums_plain(curve, bases, keys, src, w * nb))
+    k1_err = 0 if affine_equal(torch, curve, buckets, k1_plain) else 1
+    buckets = buckets.reshape(w, nb, 3, 8)
+    k2_ms = cuda_ms(torch, lambda: kmsm.msm_window_sums_cuda(curve, buckets, c), 3)
+    k2_plain_ms, k2_plain = timed_once(
+        torch, lambda: kmsm.msm_window_sums_plain(curve, buckets, c))
+    k2_err = 0 if affine_equal(torch, curve, kmsm.msm_window_sums_cuda(curve, buckets, c)[None],
+                               k2_plain[None]) else 1
+
+    spec = BN254_FQ
+    state, prover = zero_check_state(torch, k, gen, spec=spec)
+    ids = identity_params(spec, 0, state.identity_offset, "cuda")
+    args = (state.stacked, prover.instrs, prover.consts, prover.tape.num_regs,
+            prover.tape.out_reg, state.degree, ids)
+    k3_ms = cuda_ms(torch, lambda: ksc.sumcheck_round_cuda(spec, *args), 3)
+    k3_plain_ms, k3_plain = timed_once(torch, lambda: ksc.sumcheck_round_plain(spec, *args))
+    k3_err = 0 if torch.equal(ksc.sumcheck_round_cuda(spec, *args), k3_plain) else 1
+    ch = limb.const(spec, 0x1234567890ABCDEF, "cuda")
+    k4_ms = cuda_ms(torch, lambda: ksc.fold_cuda(spec, state.stacked, ch), 10)
+    k4_plain_ms, k4_plain = timed_once(torch, lambda: ksc.fold_plain(spec, state.stacked, ch))
+    k4_err = 0 if torch.equal(ksc.fold_cuda(spec, state.stacked, ch), k4_plain) else 1
+    t_count, rows, _ = state.stacked.shape
+    degree = state.degree
+    n_mul = int((prover.instrs[:, 0] == OP_MUL).sum())
+    del state, prover, args
+
+    half = n // 2
+    left, right = bases[:half], bases[half:]
+    xi = random.Random(6).randrange(curve.scalar.p)
+    fold_ms = cuda_ms(torch, lambda: kipa.base_fold_cuda(curve, left, right, xi), 3)
+    fold_plain_ms, fold_plain = timed_once(
+        torch, lambda: kipa.base_fold_plain(curve, left, right, xi))
+    fold_err = 0 if torch.equal(kipa.base_fold_cuda(curve, left, right, xi), fold_plain) else 1
+    del fold_plain
+
+    rows_out = []
+    for name, counter, source_file, replaces, ms, plain_ms, err, work in (
+        ("msm_bucket_sums_grumpkin", "msm_bucket_sums", "plonkish_tpu_torch/csrc/msm.cu",
+         "plonkish_tpu/pallas/msm.py:46", k1_ms, k1_plain_ms, k1_err,
+         roofline.bucket_sums_work(n, m, unique)),
+        ("msm_window_sums_grumpkin", "msm_window_sums", "plonkish_tpu_torch/csrc/msm.cu",
+         "plonkish_tpu/pallas/msm.py:119", k2_ms, k2_plain_ms, k2_err,
+         roofline.window_sums_work(w, nb, c)),
+        ("sumcheck_round_fq", "sumcheck_round", "plonkish_tpu_torch/csrc/sumcheck.cuh",
+         "plonkish_tpu/pallas/sumcheck.py:159", k3_ms, k3_plain_ms, k3_err,
+         roofline.round_work(t_count, rows // 2, degree, n_mul)),
+        ("sumcheck_fold_fq", "sumcheck_fold", "plonkish_tpu_torch/csrc/sumcheck.cu",
+         "plonkish_tpu/pallas/sumcheck.py:225", k4_ms, k4_plain_ms, k4_err,
+         roofline.fold_work(t_count, rows // 2)),
+        ("ipa_base_fold", "ipa_base_fold", "plonkish_tpu_torch/csrc/ipa.cu",
+         "plonkish_tpu/pcs/ipa.py:157", fold_ms, fold_plain_ms, fold_err,
+         roofline.base_fold_work(half, xi, curve.base.p)),
+    ):
+        if err:
+            fail(f"{name} differs from its plain version at the k={k} shapes")
+        b_ms, b_by, b_src = roofline.bound_ms(*work, peaks)
+        rows_out.append({
+            "name": name, "route": "cuda", "source": source_file, "replaces": replaces,
+            "launches": 0, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "path": "ipa", "counter": counter,
+        })
+        log(f"[timing] {name}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
+            f"{b_by} at the {b_src} rate)")
     return rows_out
 
 
@@ -715,10 +903,124 @@ def phase6_harness(k, launches, reset_launches):
         if not all(float(v) > 0 for v in rows[0][1:]):
             fail(f"the harness row of {name} holds no time: {added}")
         log(f"[harness] {name} row: {','.join(rows[0])} ms")
-    for name, count in harness_path.items():
-        if count <= 0:
+    for name in PROVER_KERNELS + ("mont_mul_chain",):
+        if harness_path[name] <= 0:
             fail(f"kernel {name} was not launched on the harness path")
     return harness_path
+
+
+# ------------------------------------------------------ 7 IPA at full size
+
+def phase7_ipa(torch, k, launches, reset_launches):
+    """HyperPlonk over BN254 Fq with the multilinear IPA on Grumpkin at k:
+    the path of the Grumpkin K1 and K2, K3 and K4 over Fq and the IPA base
+    fold."""
+    from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
+    from plonkish_tpu_torch.fields.spec import BN254_FQ
+    from plonkish_tpu_torch.kernels import sumcheck_gen
+    from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+    from plonkish_tpu_torch.pcs.ipa import MultilinearIpa
+    from plonkish_tpu_torch.utils import timer
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    spec = BN254_FQ
+    times = {}
+    t0 = time.time()
+    ci, circuit = rand_vanilla_plonk_circuit(spec, k, random.Random(1), random.Random(2))
+    times["circuit"] = time.time() - t0
+    backend = HyperPlonk(MultilinearIpa())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    param = backend.setup(ci, random.Random(0))
+    torch.cuda.synchronize()
+    times["setup"] = time.time() - t0
+    t0 = time.time()
+    pp, vp = backend.preprocess(param, ci)
+    torch.cuda.synchronize()
+    times["preprocess"] = time.time() - t0
+    log(f"[ipa k={k}] circuit {times['circuit']:.2f}s, setup {times['setup']:.2f}s (the "
+        f"basis kept from phase 5), preprocess {times['preprocess']:.2f}s")
+
+    t0 = time.time()
+    kernels_before = len(sumcheck_gen.BUILDS)
+    backend.prove(pp, circuit, Keccak256Transcript(spec))
+    torch.cuda.synchronize()
+    kernels_warm = len(sumcheck_gen.BUILDS)
+    log(f"[ipa k={k}] warm-up prove {time.time() - t0:.2f}s; K3 kernels loaded in this process "
+        f"{kernels_before} before it, {kernels_warm} after it")
+
+    timer.set_sync(torch.cuda.synchronize)
+    timer.set_enabled(True)
+    timer.reset_trace()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Keccak256Transcript(spec)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    backend.prove(pp, circuit, tr)
+    torch.cuda.synchronize()
+    times["prove"] = time.time() - t0
+    ipa_path = dict(launches)
+    timer.set_enabled(False)
+    peak = torch.cuda.max_memory_allocated()
+    proof = tr.into_proof()
+    log(f"[ipa k={k}] prove {times['prove']:.3f}s, {len(proof)} bytes, "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    spans = [(n, d, s) for n, d, s in timer.trace() if d <= 1]
+    for name, depth, sec in spans:
+        log(f"[ipa k={k}] span {'  ' * depth}{name}: {sec * 1e3:.1f} ms")
+    top = sum(s for _, d, s in spans if d == 0)
+    log(f"[ipa k={k}] outside top-level spans: {(times['prove'] - top) * 1e3:.1f} ms")
+    log(f"[ipa k={k}] kernel launches in the timed prove: {json.dumps(ipa_path)}; K3 kernels "
+        f"built or loaded in it: {len(sumcheck_gen.BUILDS) - kernels_warm}")
+    if len(sumcheck_gen.BUILDS) != kernels_warm:
+        fail("the timed IPA prove built a K3 kernel")
+    for name in IPA_KERNELS:
+        if ipa_path[name] <= 0:
+            fail(f"kernel {name} was not launched in the k={k} IPA prove")
+
+    t0 = time.time()
+    backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(spec, proof))
+    times["verify"] = time.time() - t0
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(spec, bytes(bad)))
+    except (ValueError, EOFError):
+        pass
+    else:
+        fail("an IPA proof with a flipped byte was accepted")
+    log(f"[ipa k={k}] verify {times['verify']:.2f}s; flipped byte rejected")
+    log(f"[ipa k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
+    return ipa_path
+
+
+def phase7_harness(k, launches, reset_launches):
+    """The harness's pcs system at k for the five PCS of this slice, in
+    process, one timed sample each after the harness's own warm-up."""
+    from plonkish_tpu_torch import benchmark
+
+    for pcs in NEW_PCS:
+        name = f"pcs_{pcs}"
+        path = os.path.join(benchmark.BENCH_DIR, name)
+        size = os.path.getsize(path) if os.path.exists(path) else 0
+        reset_launches()
+        t0 = time.time()
+        benchmark.main(["--system", "pcs", "--pcs", pcs, "--k", f"{k}..{k + 1}",
+                        "--samples", "1"])
+        log(f"[harness] {name} k={k}: {time.time() - t0:.1f}s; kernel launches "
+            f"{json.dumps(dict(launches))}")
+        with open(path) as fh:
+            fh.seek(size)
+            added = fh.read().splitlines()
+        if any(line.startswith("# FAILED") for line in added):
+            fail(f"the harness wrote a FAILED row to {name}: {added}")
+        rows = [line.split(",") for line in added if not line.startswith("#")]
+        if len(rows) != 1 or len(rows[0]) != 3 or int(rows[0][0]) != k:
+            fail(f"the harness row of {name} at k={k} is missing: {added}")
+        if not all(float(v) > 0 for v in rows[0][1:]):
+            fail(f"the harness row of {name} holds no time: {added}")
+        log(f"[harness] {name} row: {','.join(rows[0])} ms")
 
 
 if __name__ == "__main__":

@@ -17,8 +17,10 @@ in the same process (``roofline.measure_peaks``).
 
 Systems: ``hyperplonk`` (a whole proof), ``zero_check`` (the sum-check prover
 alone over the composed vanilla-PLONK expression), ``pcs`` (commit and open of
-one polynomial).  The KZG SRS is cached under target/srs_cache_torch/;
-``--setup-only`` writes the zero-check tables of each k to
+one polynomial); ``--pcs`` picks kzg, brakedown, gemini, zeromorph, ipa or
+hyrax for both ``pcs`` and ``hyperplonk``, the rows of ``pcs`` going to
+target/bench_torch/pcs_<name>.  The multilinear KZG SRS is cached under
+target/srs_cache_torch/; ``--setup-only`` writes the zero-check tables of each k to
 target/setup_cache_torch/, and a later run of the same k reads them instead
 of synthesising the circuit again.
 """
@@ -113,7 +115,7 @@ def _main(argv=None) -> None:
         choices=["vanilla_plonk", "vanilla_plonk_with_lookup"],
     )
     ap.add_argument("--k", default="8..10", help="range, e.g. 8..12")
-    ap.add_argument("--pcs", default="kzg", choices=["kzg"])
+    ap.add_argument("--pcs", default="kzg", choices=list(PCS_CHOICES))
     ap.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="cuda (the default) raises without a card; cpu runs every "
@@ -193,11 +195,38 @@ def _circuit_fn(name: str):
     }[name]
 
 
-def _make_pcs(name: str, device):
-    from .pcs.kzg import MultilinearKzg
+PCS_CHOICES = ("kzg", "brakedown", "gemini", "zeromorph", "ipa", "hyrax")
 
-    assert name == "kzg"
-    return MultilinearKzg(device=device)
+
+def _make_pcs(name: str, device):
+    """The reference harness's mapping (plonkish_tpu/benchmark.py:195-218):
+    KZG, Gemini and Zeromorph on BN254, Brakedown over BN254 Fr with its
+    default spec, IPA and Hyrax on Grumpkin."""
+    if name == "kzg":
+        from .pcs.kzg import MultilinearKzg
+
+        return MultilinearKzg(device=device)
+    if name == "brakedown":
+        from .fields.spec import BN254_FR
+        from .pcs.brakedown import MultilinearBrakedown
+
+        return MultilinearBrakedown(BN254_FR, device=device)
+    if name == "gemini":
+        from .pcs.gemini import Gemini
+
+        return Gemini(device=device)
+    if name == "zeromorph":
+        from .pcs.zeromorph import Zeromorph
+
+        return Zeromorph(device=device)
+    if name == "ipa":
+        from .pcs.ipa import MultilinearIpa
+
+        return MultilinearIpa(device=device)
+    from .pcs.hyrax import MultilinearHyrax
+
+    assert name == "hyrax", name
+    return MultilinearHyrax(device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -552,7 +581,8 @@ def _profile_prove(out_dir, k, backend, pp, circuit, spec, device) -> None:
 
 
 def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
-    """Disk-cache the KZG SRS across bench runs.
+    """Disk-cache the multilinear KZG SRS across bench runs (the other PCS
+    set up afresh).
 
     setup is deterministic in (seed, size), `random.Random(seed)` drives the
     trapdoor draw, so caching is sound; the fixed-base MSM that builds the SRS
@@ -566,7 +596,8 @@ def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
     from .fields.host import Fp
     from .pcs.kzg import MultilinearKzgParams
 
-    assert pcs_name == "kzg"
+    if pcs_name != "kzg":
+        return backend.setup(circuit_info, random.Random(seed))
     path = f"{SRS_CACHE_DIR}/kzg_k{k}_seed{seed}.npz"
     if os.path.exists(path):
         with np.load(path) as z:

@@ -8,7 +8,9 @@
 // locals, so that nvcc keeps the tape's registers in registers, and
 // instantiates the templates below with it.  The constants' values are read
 // from `consts` at run time: one kernel serves every proof whose expression
-// has the same structure.
+// has the same structure.  The field is the Tape's (`Tape::F`: Fr for
+// HyperPlonk over BN254, Fq for HyperPlonk over Grumpkin's scalar field), and
+// part of the generated source.
 //
 // One thread per (pair, t): a warp takes 32 neighbouring pairs at one t, and
 // a block's warps take t = 1..d, so the d warps that read the same pairs
@@ -46,8 +48,9 @@ constexpr int SC_REDUCE_THREADS = 128;
 #define PK_SC_NOINLINE __attribute__((noinline))
 #endif
 
+template <class F>
 __host__ __device__ PK_SC_NOINLINE Fe sc_mul(const Fe a, const Fe b) {
-  return fe_mul<Fr>(a, b);
+  return fe_mul<F>(a, b);
 }
 
 // lo and hi of one pair: 64 contiguous bytes.
@@ -64,22 +67,24 @@ PK_HD void sc_load_pair(const uint32_t* p, Fe& lo, Fe& hi) {
 }
 
 // Stacked row `row` of state [T, 2s, 8] at pair i and t = tm1 + 1.
+template <class F>
 PK_HD Fe sc_leaf(const uint32_t* state, int64_t s, int row, int64_t i, int tm1) {
   Fe lo, hi;
   sc_load_pair(state + ((int64_t)row * 2 * s + 2 * i) * 8, lo, hi);
-  Fe step = fe_sub<Fr>(hi, lo);
-  for (int k = 0; k < tm1; k++) hi = fe_add<Fr>(hi, step);
+  Fe step = fe_sub<F>(hi, lo);
+  for (int k = 0; k < tm1; k++) hi = fe_add<F>(hi, step);
   return hi;
 }
 
 // The identity leaf at pair i and t = tm1 + 1.
+template <class F>
 PK_HD Fe sc_identity(const uint32_t* ids, int64_t i, int tm1) {
   Fe idx = fe_zero();
   idx.v[0] = (uint32_t)i;
   idx.v[1] = (uint32_t)((uint64_t)i >> 32);
-  Fe v = fe_add<Fr>(sc_mul(idx, fe_load(ids)), fe_load(ids + 8));
+  Fe v = fe_add<F>(sc_mul<F>(idx, fe_load(ids)), fe_load(ids + 8));
   Fe step = fe_load(ids + 16);
-  for (int k = 0; k < tm1; k++) v = fe_add<Fr>(v, step);
+  for (int k = 0; k < tm1; k++) v = fe_add<F>(v, step);
   return v;
 }
 
@@ -92,7 +97,7 @@ PK_HD Fe sc_thread_sum(const uint32_t* state, int64_t s, const uint32_t* consts,
                        const uint32_t* ids, int tm1, int64_t first, int64_t stride) {
   Fe acc = fe_zero();
   for (int64_t i = first; i < s; i += stride)
-    acc = fe_add<Fr>(acc, Tape::eval(state, s, i, tm1, consts, ids));
+    acc = fe_add<typename Tape::F>(acc, Tape::eval(state, s, i, tm1, consts, ids));
   return acc;
 }
 
@@ -117,25 +122,26 @@ __global__ void sc_round_kernel(const uint32_t* state, int64_t s,
     Fe o;
 #pragma unroll
     for (int w = 0; w < 8; w++) o.v[w] = __shfl_down_sync(0xffffffffu, acc.v[w], off);
-    acc = fe_add<Fr>(acc, o);
+    acc = fe_add<typename Tape::F>(acc, o);
   }
   if (lane == 0) fe_store(partial + ((int64_t)blockIdx.x * Tape::DEGREE + tm1) * 8, acc);
 }
 
 // One block: out[t] = sum of partial[b, t] over the blocks.
-static __global__ void sc_reduce_kernel(const uint32_t* partial, int blocks,
+template <class F>
+__global__ void sc_reduce_kernel(const uint32_t* partial, int blocks,
                                         int degree, uint32_t* out) {
   __shared__ uint32_t sh[SC_REDUCE_THREADS * 8];
   int tid = threadIdx.x;
   for (int t = 0; t < degree; t++) {
     Fe acc = fe_zero();
     for (int b = tid; b < blocks; b += SC_REDUCE_THREADS)
-      acc = fe_add<Fr>(acc, fe_load(partial + ((int64_t)b * degree + t) * 8));
+      acc = fe_add<F>(acc, fe_load(partial + ((int64_t)b * degree + t) * 8));
     fe_store(sh + tid * 8, acc);
     __syncthreads();
     for (int w = SC_REDUCE_THREADS / 2; w > 0; w >>= 1) {
       if (tid < w)
-        fe_store(sh + tid * 8, fe_add<Fr>(fe_load(sh + tid * 8), fe_load(sh + (tid + w) * 8)));
+        fe_store(sh + tid * 8, fe_add<F>(fe_load(sh + tid * 8), fe_load(sh + (tid + w) * 8)));
       __syncthreads();
     }
     if (tid == 0) fe_store(out + t * 8, fe_load(sh));
@@ -152,7 +158,8 @@ int sc_round_run(const uint32_t* state, long long s, const uint32_t* consts,
   sc_round_kernel<Tape><<<grid, warps * SC_WARP, 0, st>>>(state, s, consts, ids, partial);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  sc_reduce_kernel<<<1, SC_REDUCE_THREADS, 0, st>>>(partial, blocks, Tape::DEGREE, out);
+  sc_reduce_kernel<typename Tape::F><<<1, SC_REDUCE_THREADS, 0, st>>>(partial, blocks,
+                                                                    Tape::DEGREE, out);
   return (int)cudaGetLastError();
 }
 
@@ -205,7 +212,7 @@ int sc_round_run(const uint32_t* state, long long s, const uint32_t* consts,
     for (int tm1 = 0; tm1 < Tape::DEGREE; tm1++) {
       Fe acc = fe_zero();
       for (int lane = 0; lane < SC_WARP; lane++)
-        acc = fe_add<Fr>(acc, sc_thread_sum<Tape>(state, s, consts, ids, tm1,
+        acc = fe_add<typename Tape::F>(acc, sc_thread_sum<Tape>(state, s, consts, ids, tm1,
                                                   (int64_t)b * SC_WARP + lane,
                                                   (int64_t)blocks * SC_WARP));
       fe_store(partial + ((int64_t)b * Tape::DEGREE + tm1) * 8, acc);
@@ -214,7 +221,8 @@ int sc_round_run(const uint32_t* state, long long s, const uint32_t* consts,
   for (int tm1 = 0; tm1 < Tape::DEGREE; tm1++) {
     Fe acc = fe_zero();
     for (int b = 0; b < blocks; b++)
-      acc = fe_add<Fr>(acc, fe_load(partial + ((int64_t)b * Tape::DEGREE + tm1) * 8));
+      acc = fe_add<typename Tape::F>(acc,
+                                     fe_load(partial + ((int64_t)b * Tape::DEGREE + tm1) * 8));
     fe_store(out + tm1 * 8, acc);
   }
   return 0;

@@ -10,10 +10,14 @@ header ``csrc/curve.cuh`` computes the same formulas one point per thread.
 
 Storage on a device is ``int32[..., 3, 8]`` (Jacobian) or ``int32[..., 2, 8]``
 (affine, identity written as (0, 0), which is not on a curve with b != 0).
+``identity``, ``padd``, ``pdbl`` and ``scalar_mul_const`` work on Jacobian
+storage, for BN254 G1 and Grumpkin G1 alike (both have a = 0); they are the
+plain version of the IPA base fold (``kernels/ipa.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import torch
@@ -70,6 +74,15 @@ def jdbl(curve: CurveSpec, p):
     return (x3, y3, z3)
 
 
+def _doubled(curve: CurveSpec, p, dbl):
+    """2p where `dbl` selects it: the doubling is computed only when some
+    point of the batch needs it (on the CPU, where the plain versions run,
+    the check costs nothing)."""
+    if bool(dbl.any()):
+        return jdbl(curve, p)
+    return p
+
+
 def jmadd(curve: CurveSpec, p, x2, y2, inf2):
     """Jacobian + affine (madd-2007-bl) with every case selected."""
     x1, y1, z1 = p
@@ -94,9 +107,9 @@ def jmadd(curve: CurveSpec, p, x2, y2, inf2):
     p1_inf = limb.d_is_zero(z1)
     h_zero = limb.d_is_zero(h)
     r_zero = limb.d_is_zero(r)
-    dbl = h_zero & r_zero
+    dbl = h_zero & r_zero & ~p1_inf & ~inf2
     opposite = h_zero & ~r_zero
-    dx, dy, dz = jdbl(curve, p)
+    dx, dy, dz = _doubled(curve, p, dbl)
     one = f.c["one"].expand_as(x2)
     zero = torch.zeros_like(x2)
 
@@ -140,7 +153,7 @@ def jadd(curve: CurveSpec, p, q):
     both = ~(p1_inf | p2_inf)
     dbl = both & h_zero & r_zero
     opposite = both & h_zero & ~r_zero
-    dx, dy, dz = jdbl(curve, p)
+    dx, dy, dz = _doubled(curve, p, dbl)
     zero = torch.zeros_like(x1)
 
     def pick(v3, dv, qv, pv):
@@ -230,3 +243,100 @@ def jac_to_host(curve: CurveSpec, t: torch.Tensor) -> List[AffinePoint]:
             AffinePoint(curve, Fp(x * zi2 % p, spec), Fp(y * zi2 % p * zi % p, spec))
         )
     return out
+
+
+# ---------------------------------------------------------------------------
+# Point batches in storage form (counterparts of the reference's identity,
+# padd, pdbl and scalar_mul_const, curves/device.py:26-591)
+# ---------------------------------------------------------------------------
+
+def identity(curve: CurveSpec, shape=(), device="cpu") -> torch.Tensor:
+    """The identity as Jacobian storage int32[*shape, 3, 8] (Z = 0)."""
+    return torch.zeros((*shape, 3, 8), dtype=torch.int32, device=device)
+
+
+def padd(curve: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p + q for Jacobian storage batches int32[N, 3, 8]."""
+    return pack_jac(jadd(curve, unpack_jac(p), unpack_jac(q)))
+
+
+def pdbl(curve: CurveSpec, p: torch.Tensor) -> torch.Tensor:
+    """2p for a Jacobian storage batch int32[N, 3, 8]."""
+    return pack_jac(jdbl(curve, unpack_jac(p)))
+
+
+@functools.lru_cache(maxsize=None)
+def _endomorphism(curve: CurveSpec):
+    """(beta, lambda, short lattice basis) of the curve's GLV endomorphism
+    (x, y) -> (beta * x, y) = lambda * (x, y), which every a = 0 curve over
+    a field with p = 1 mod 3 has: beta a cube root of unity of the base
+    field, lambda one of the scalar field, paired on the generator."""
+    p, n = curve.base.p, curve.scalar.p
+    beta = next(b for b in (pow(h, (p - 1) // 3, p) for h in range(2, 100)) if b != 1)
+    lam = next(v for v in (pow(h, (n - 1) // 3, n) for h in range(2, 100)) if v != 1)
+    g = AffinePoint.generator(curve)
+    if g.scalar_mul(lam) != AffinePoint(curve, g.x * Fp(beta, curve.base), g.y):
+        beta = beta * beta % p
+    # extended Euclid on (n, lambda) down to sqrt(n) (GLV's lattice basis)
+    r0, r1, t0, t1 = n, lam, 0, 1
+    while r1 * r1 >= n:
+        q = r0 // r1
+        r0, r1, t0, t1 = r1, r0 - q * r1, t1, t0 - q * t1
+    q = r0 // r1
+    r2, t2 = r0 - q * r1, t0 - q * t1
+    v1 = (r1, -t1)
+    v2 = (r0, -t0) if r0 * r0 + t0 * t0 <= r2 * r2 + t2 * t2 else (r2, -t2)
+    return beta, lam, v1, v2
+
+
+def _glv_split(curve: CurveSpec, k: int):
+    """(k1, k2) of about half the bits each with k = k1 + k2 * lambda mod n."""
+    n = curve.scalar.p
+    _, lam, (a1, b1), (a2, b2) = _endomorphism(curve)
+    c1 = (b2 * k + n // 2) // n
+    c2 = (-b1 * k + n // 2) // n
+    k1, k2 = k - c1 * a1 - c2 * a2, -c1 * b1 - c2 * b2
+    assert (k1 + k2 * lam - k) % n == 0
+    return k1, k2
+
+
+def scalar_mul_const(curve: CurveSpec, points: torch.Tensor, k: int) -> torch.Tensor:
+    """k * P for every point, with one host-known scalar k.  points: Jacobian
+    storage int32[N, 3, 8], or affine int32[N, 2, 8] (then the additions of
+    P are mixed); the result is Jacobian storage.
+
+    k is split by the curve's endomorphism into k1 + k2 * lambda of about
+    128 bits each, and k1 * P + k2 * phi(P) is one double-and-add over both
+    halves at once (Shamir): half the doublings of a plain ladder."""
+    k = int(k) % curve.scalar.p
+    affine = points.shape[-2] == 2
+    x, y, zi = unpack_affine(points) if affine else unpack_jac(points)
+    c = limb._consts(curve.base, x.device)
+    beta = limb.d_const(curve.base, _endomorphism(curve)[0], x.device)
+    k1, k2 = _glv_split(curve, k)
+    p1 = (x, limb.d_neg(y, c) if k1 < 0 else y, zi)
+    p2 = (limb.d_mul(x, beta, c), limb.d_neg(y, c) if k2 < 0 else y, zi)
+    k1, k2 = abs(k1), abs(k2)
+    if affine:
+        both = jmadd(curve, affine_to_jac(curve, *p1), *p2)
+        add = lambda acc, q: jmadd(curve, acc, *q)  # noqa: E731
+    else:
+        both = jadd(curve, p1, p2)
+        add = lambda acc, q: jadd(curve, acc, q)  # noqa: E731
+    zero = torch.zeros_like(x)
+    acc = (zero, zero, zero)
+    for i in reversed(range(max(k1.bit_length(), k2.bit_length()))):
+        acc = jdbl(curve, acc)
+        b1, b2 = (k1 >> i) & 1, (k2 >> i) & 1
+        if b1 and b2:
+            acc = jadd(curve, acc, both)
+        elif b1:
+            acc = add(acc, p1)
+        elif b2:
+            acc = add(acc, p2)
+    return pack_jac(acc)
+
+
+def affine_to_jac_storage(curve: CurveSpec, t: torch.Tensor) -> torch.Tensor:
+    """int32[N, 2, 8] affine storage -> int32[N, 3, 8] Jacobian storage."""
+    return pack_jac(affine_to_jac(curve, *unpack_affine(t)))

@@ -113,11 +113,17 @@ def variable_base_msm(
     return cdev.jac_to_host(curve, point[None])[0]
 
 
-def msm_affine(scalars: Sequence[Fp], points: Sequence[AffinePoint]) -> AffinePoint:
-    """Verifier-side MSM over host points (reference msm_affine): a few
-    points, summed on the host."""
+def msm_affine(scalars: Sequence[Fp], points: Sequence[AffinePoint], device=None) -> AffinePoint:
+    """Verifier-side MSM over host points (reference msm_affine,
+    curves/msm.py:677-690): summed on the host, unless a device is given and
+    there are 16 points or more, when they go through variable_base_msm
+    there (Hyrax's verifier combines one commitment per row)."""
     assert len(scalars) == len(points)
-    return msm_host(scalars, points)
+    if device is None or len(points) < 16:
+        return msm_host(scalars, points)
+    curve = points[0].curve
+    bases = cdev.affine_from_host(curve, points, device)
+    return variable_base_msm(curve, limb.from_ints([int(s) for s in scalars], device), bases)
 
 
 def fixed_base_msm(

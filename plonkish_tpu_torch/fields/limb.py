@@ -342,3 +342,22 @@ def fold_pairs(spec, evals, x):
     """out[i] = e[2i] + x*(e[2i+1] - e[2i]) (multilinear fix_var)."""
     pairs = evals.reshape(-1, 2, L)
     return fold_halves(spec, pairs[:, 0], pairs[:, 1], x)
+
+
+def scatter_sum(spec, terms, index, m: int):
+    """out[..., j, :] = sum of terms[..., c, :] over the c with index[c] = j,
+    modulo p (reference limb.scatter_sum, fields/limb.py:785).
+
+    terms: Montgomery int32[..., cells, 8]; index: int64[cells] below m.  The
+    digits are added lazily with ``index_add_`` (a column of k terms holds
+    digits below k * 2^16) and reduced once, exactly."""
+    lead = terms.shape[:-2]
+    cells = terms.shape[-2]
+    batch = int(np.prod(lead)) if lead else 1
+    c = _consts(spec, terms.device)
+    d = unpack(terms.reshape(batch * cells, L))
+    idx = index.to(terms.device).long()
+    idx = (idx.unsqueeze(0) + m * torch.arange(batch, device=terms.device).unsqueeze(1)).reshape(-1)
+    lazy = torch.zeros((D, batch * m), dtype=torch.int64, device=terms.device)
+    lazy.index_add_(1, idx, d)
+    return pack(d_mul(d_redc(lazy, c), c["r2"], c), (*lead, m))

@@ -13,6 +13,7 @@ LAUNCHES = {
     "sumcheck_round": 0,
     "sumcheck_fold": 0,
     "mont_mul_chain": 0,
+    "ipa_base_fold": 0,
 }
 
 

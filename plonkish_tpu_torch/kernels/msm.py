@@ -4,13 +4,21 @@ plain versions.
 K1 replaces plonkish_tpu/pallas/msm.py::_bucket_kernel (pallas/msm.py:46) and
 K2 replaces ::_reduce_kernel (pallas/msm.py:119), both launched there by
 ``_msm_windows_pallas_jit``; K2 also does the window combine that the
-reference leaves to the host.  The CUDA sources are ``csrc/msm.cu`` over the
-shared headers ``csrc/field.cuh`` and ``csrc/curve.cuh``.
+reference leaves to the host.  The kernels are templates in ``csrc/msm.cuh``
+over the shared headers ``csrc/field.cuh`` and ``csrc/curve.cuh``; the entry
+points and BN254's kernels are compiled in ``csrc/msm.cu``, Grumpkin's in
+``csrc/msm_grumpkin.cu``.
 
-Inputs of K1: the affine basis ``int32[N, 2, 8]`` (Montgomery Fq, identity as
-(0, 0)), and every (window, point) digit of the recoded scalars, sorted by
-key: ``keys int32[M]`` (window * B + bucket, or the sentinel ``num_keys`` for
-a zero digit) and ``src int32[M]`` (2 * point index + sign).  Output: one
+Both run on BN254 G1 (coordinates in Fq; KZG, Gemini, Zeromorph) and on
+Grumpkin G1 (coordinates in BN254's Fr; IPA, Hyrax): the CUDA code is a
+template over the base field, and the curve is an argument of every entry
+point (``CURVE_IDS``).
+
+Inputs of K1: the affine basis ``int32[N, 2, 8]`` (Montgomery, over the
+curve's base field, identity as (0, 0)), and every (window, point) digit of
+the recoded scalars, sorted by key: ``keys int32[M]`` (window * B + bucket,
+or the sentinel ``num_keys`` for a zero digit) and ``src int32[M]`` (2 *
+point index + sign).  Output: one
 Jacobian sum per key, ``int32[num_keys, 3, 8]`` (identity where no live entry
 has the key).
 
@@ -31,12 +39,13 @@ import ctypes
 import torch
 
 from ..curves import device as cdev
-from ..curves.specs import BN254_G1, CurveSpec
+from ..curves.host import AffinePoint
+from ..curves.specs import BN254_G1, GRUMPKIN_G1, CurveSpec
 from ..fields import limb
 from . import LAUNCHES
 from . import build
 
-# Sizes compiled into csrc/msm.cu (checked by ``msm_check_layout``).
+# Sizes compiled into csrc/msm.cuh (checked by ``msm_check_layout``).
 K1_TILE = 4096  # sorted entries per block and level: 128 threads x 32
 K2_SEGMENT = 16  # buckets per thread at K2's first level
 K2_THREADS = 128  # items per block at every K2 level
@@ -52,9 +61,16 @@ def _check(t: torch.Tensor, dtype, tail, name):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _check_curve(curve: CurveSpec):
-    if curve is not BN254_G1:
-        raise NotImplementedError("the MSM kernels are built for BN254 G1")
+CURVE_IDS = {BN254_G1.name: 0, GRUMPKIN_G1.name: 1}  # csrc/curve.cuh: CURVE_BN254, CURVE_GRUMPKIN
+
+
+def curve_id(curve: CurveSpec) -> int:
+    """The curve id of `curve`: the kernels are built for BN254 G1 (KZG,
+    Gemini, Zeromorph) and Grumpkin G1 (IPA, Hyrax)."""
+    if curve.name not in CURVE_IDS:
+        raise NotImplementedError(f"the MSM kernels are built for BN254 G1 and Grumpkin G1, "
+                                  f"not {curve.name}")
+    return CURVE_IDS[curve.name]
 
 
 def check_layout(lib) -> None:
@@ -62,7 +78,7 @@ def check_layout(lib) -> None:
     with this module's K1_TILE, K2_SEGMENT and K2_THREADS."""
     fn = build.bind(lib.msm_check_layout, [ctypes.c_int] * 3)
     if fn(K1_TILE, K2_SEGMENT, K2_THREADS) != 0:
-        raise ValueError("kernels/msm.py and csrc/msm.cu disagree on the MSM layout")
+        raise ValueError("kernels/msm.py and csrc/msm.cuh disagree on the MSM layout")
 
 
 def _tree_sum(curve, pts, groups: int):
@@ -144,11 +160,12 @@ def bucket_level_sizes(m: int):
     return sizes
 
 
-def bucket_levels(level_fn, stream, bases, keys, src, num_keys):
+def bucket_levels(level_fn, stream, bases, keys, src, num_keys, curve=BN254_G1):
     """Drive K1's levels through `level_fn` (the C entry point
     ``msm_bucket_level`` or its host twin): level 0 over the sorted entries,
     each later one over the previous level's carry slots, until a level fits
     one tile."""
+    cid = curve_id(curve)
     dev = bases.device
     buckets = limb.zeros((num_keys, 3), dev)
     k_in, aux, pts, affine = keys, src, bases, 1
@@ -158,7 +175,7 @@ def bucket_levels(level_fn, stream, bases, keys, src, num_keys):
         cp = torch.empty((2 * tiles, 3, 8), dtype=torch.int32, device=dev)
         rc = level_fn(k_in.data_ptr(), aux.data_ptr(), pts.data_ptr(), m, num_keys,
                       affine, buckets.data_ptr(), ck.data_ptr(), cf.data_ptr(),
-                      cp.data_ptr(), stream)
+                      cp.data_ptr(), cid, stream)
         if rc != 0:
             raise RuntimeError(f"msm_bucket_level launch failed: CUDA error {rc}")
         LAUNCHES["msm_bucket_sums"] += 1
@@ -168,11 +185,11 @@ def bucket_levels(level_fn, stream, bases, keys, src, num_keys):
 
 LEVEL_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
               ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 WINDOW_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 COMBINE_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_void_p]
 
 
 def _lib():
@@ -182,7 +199,7 @@ def _lib():
 
 
 def msm_bucket_sums_cuda(curve, bases, keys, src, num_keys):
-    _check_curve(curve)
+    curve_id(curve)
     _check(bases, torch.int32, (2, 8), "bases")
     _check(keys, torch.int32, (), "keys")
     _check(src, torch.int32, (), "src")
@@ -193,7 +210,7 @@ def msm_bucket_sums_cuda(curve, bases, keys, src, num_keys):
         raise ValueError("bases must be 16-byte aligned (K1 copies its points with cp.async)")
     fn = build.bind(_lib().msm_bucket_level, LEVEL_ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return bucket_levels(fn, stream, bases, keys, src, num_keys)
+    return bucket_levels(fn, stream, bases, keys, src, num_keys, curve)
 
 
 def bucket_sums(curve, bases, keys, src, num_keys):
@@ -208,16 +225,18 @@ def bucket_sums(curve, bases, keys, src, num_keys):
 # ---------------------------------------------------------------------------
 
 def msm_window_combine_plain(curve, window_sums, c):
-    """sum_w 2^(c*w) * window_sums[w] -> int32[3, 8]: window w doubled c * w
-    times (all windows at once, each dropped when it has its doublings), then
-    a tree sum, as the combine kernel does it."""
-    pts = cdev.unpack_jac(window_sums)
-    for lo in range(1, window_sums.shape[0]):
-        tail = tuple(v[:, lo:] for v in pts)
+    """sum_w 2^(c*w) * window_sums[w] -> int32[3, 8], combined on the host as
+    the reference combines its window kernel's output
+    (plonkish_tpu/curves/msm.py:616-625): one read of the W window sums, then
+    Horner over the windows in Python integers (about 256 doublings of one
+    point, a chain that no batch of torch operations shortens)."""
+    acc = AffinePoint.identity(curve)
+    for p in reversed(cdev.jac_to_host(curve, window_sums)):
         for _ in range(c):
-            tail = cdev.jdbl(curve, tail)
-        pts = tuple(torch.cat([v[:, :lo], t], 1) for v, t in zip(pts, tail))
-    return cdev.pack_jac(_tree_sum(curve, pts, 1))[0]
+            acc = acc.double()
+        acc = acc + p
+    return cdev.affine_to_jac_storage(
+        curve, cdev.affine_from_host(curve, [acc], window_sums.device))[0]
 
 
 def msm_window_sums_plain(curve, buckets, c):
@@ -239,10 +258,11 @@ def msm_window_sums_plain(curve, buckets, c):
     return msm_window_combine_plain(curve, sums, c)
 
 
-def window_levels(level_fn, combine_fn, stream, buckets, c):
+def window_levels(level_fn, combine_fn, stream, buckets, c, curve=BN254_G1):
     """Drive K2 through `level_fn` and `combine_fn` (``msm_window_level`` and
     ``msm_window_combine`` or their host twins): levels until one item per
     window is left, then the combine."""
+    cid = curve_id(curve)
     w, b = buckets.shape[:2]
     dev = buckets.device
     src, n_in, level = buckets, b, 0
@@ -250,7 +270,7 @@ def window_levels(level_fn, combine_fn, stream, buckets, c):
         items = -(-n_in // K2_SEGMENT) if level == 0 else n_in
         n_out = -(-items // K2_THREADS)
         out = torch.empty((w, n_out, 2, 3, 8), dtype=torch.int32, device=dev)
-        rc = level_fn(src.data_ptr(), level, n_in, w, out.data_ptr(), n_out, stream)
+        rc = level_fn(src.data_ptr(), level, n_in, w, out.data_ptr(), n_out, cid, stream)
         if rc != 0:
             raise RuntimeError(f"msm_window_level launch failed: CUDA error {rc}")
         LAUNCHES["msm_window_sums"] += 1
@@ -258,7 +278,7 @@ def window_levels(level_fn, combine_fn, stream, buckets, c):
             break
         src, n_in, level = out, n_out, level + 1
     point = torch.empty((3, 8), dtype=torch.int32, device=dev)
-    rc = combine_fn(out.data_ptr(), w, c, point.data_ptr(), stream)
+    rc = combine_fn(out.data_ptr(), w, c, point.data_ptr(), cid, stream)
     if rc != 0:
         raise RuntimeError(f"msm_window_combine launch failed: code {rc} ({w} windows)")
     LAUNCHES["msm_window_sums"] += 1
@@ -266,7 +286,7 @@ def window_levels(level_fn, combine_fn, stream, buckets, c):
 
 
 def msm_window_sums_cuda(curve, buckets, c):
-    _check_curve(curve)
+    curve_id(curve)
     _check(buckets, torch.int32, (3, 8), "buckets")
     if buckets.dim() != 4 or buckets.device.type != "cuda":
         raise ValueError("buckets must be a CUDA int32[W, B, 3, 8]")
@@ -274,7 +294,7 @@ def msm_window_sums_cuda(curve, buckets, c):
     level_fn = build.bind(lib.msm_window_level, WINDOW_ARGS)
     combine_fn = build.bind(lib.msm_window_combine, COMBINE_ARGS)
     stream = torch.cuda.current_stream(buckets.device).cuda_stream
-    return window_levels(level_fn, combine_fn, stream, buckets, c)
+    return window_levels(level_fn, combine_fn, stream, buckets, c, curve)
 
 
 def window_sums(curve, buckets, c):

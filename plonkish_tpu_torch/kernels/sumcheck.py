@@ -3,7 +3,9 @@
 K3 replaces plonkish_tpu/pallas/sumcheck.py::_round_kernel
 (pallas/sumcheck.py:159, launched by ``_round_evals_jit``) and K4 replaces
 ::_fold_kernel (pallas/sumcheck.py:225, launched by ``_fold_tables_jit``).
-K4's CUDA source is ``csrc/sumcheck.cu`` over ``csrc/field.cuh``; K3's
+Both run over BN254 Fr and over BN254 Fq, the scalar field of Grumpkin that
+HyperPlonk uses with IPA and Hyrax.  K4's CUDA source is ``csrc/sumcheck.cu``
+over ``csrc/field.cuh``; K3's
 kernel is generated for each expression tape by ``kernels/sumcheck_gen.py``
 over ``csrc/sumcheck.cuh`` and built at its first use.
 
@@ -30,16 +32,23 @@ import numpy as np
 import torch
 
 from ..fields import limb
-from ..fields.spec import BN254_FR, FieldSpec
+from ..fields.spec import BN254_FQ, BN254_FR, FieldSpec
 from ..piop import tape as tape_mod
 from . import LAUNCHES
 from . import build
 from . import sumcheck_gen
 
 
-def _check_spec(spec: FieldSpec):
-    if spec is not BN254_FR:
-        raise NotImplementedError("the sum-check kernels are built for BN254 Fr")
+FIELD_IDS = {BN254_FR.p: 0, BN254_FQ.p: 1}  # the `field` argument of csrc/sumcheck.cu
+
+
+def _check_spec(spec: FieldSpec) -> int:
+    """The field id of `spec`; the kernels are built for BN254 Fr (HyperPlonk
+    over BN254) and BN254 Fq (over Grumpkin's scalar field)."""
+    if spec.p not in FIELD_IDS:
+        raise NotImplementedError(f"the sum-check kernels are built for BN254 Fr and Fq, "
+                                  f"not {spec.name}")
+    return FIELD_IDS[spec.p]
 
 
 def _check_state(stacked: torch.Tensor):
@@ -94,7 +103,7 @@ def sumcheck_round_plain(spec, stacked, instrs, consts, num_regs, out_reg,
 
 
 FOLD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def round_launch(kern, stream, stacked, consts, degree, id_params):
@@ -125,7 +134,7 @@ def sumcheck_round_cuda(spec, stacked, instrs, consts, num_regs, out_reg,
     _check_spec(spec)
     if stacked.device.type != "cuda":
         raise ValueError("state must be a CUDA tensor")
-    kern = sumcheck_gen.kernel(instrs, num_regs, out_reg, stacked.shape[0], degree)
+    kern = sumcheck_gen.kernel(instrs, num_regs, out_reg, stacked.shape[0], degree, spec)
     stream = torch.cuda.current_stream(stacked.device).cuda_stream
     return round_launch(kern, stream, stacked, consts, degree, id_params)
 
@@ -151,14 +160,15 @@ def fold_plain(spec, stacked, challenge):
     return limb.fold_halves(spec, pairs[:, :, 0], pairs[:, :, 1], challenge)
 
 
-def fold_launch(fold_fn, stream, stacked, challenge):
+def fold_launch(fold_fn, stream, stacked, challenge, spec: FieldSpec = BN254_FR):
     """Launch K4 through `fold_fn` (``sumcheck_fold`` or its host twin)."""
+    field = _check_spec(spec)
     _check_state(stacked)
     t_count, rows, _ = stacked.shape
     ch = challenge.to(stacked.device).contiguous()
     out = torch.empty((t_count, rows // 2, 8), dtype=torch.int32, device=stacked.device)
     rc = fold_fn(stacked.data_ptr(), t_count * (rows // 2), ch.data_ptr(),
-                 out.data_ptr(), stream)
+                 out.data_ptr(), field, stream)
     if rc != 0:
         raise RuntimeError(f"sumcheck_fold launch failed: CUDA error {rc}")
     LAUNCHES["sumcheck_fold"] += 1
@@ -171,7 +181,7 @@ def fold_cuda(spec, stacked, challenge):
         raise ValueError("state must be a CUDA tensor")
     fn = build.bind(build.lib().sumcheck_fold, FOLD_ARGS)
     stream = torch.cuda.current_stream(stacked.device).cuda_stream
-    return fold_launch(fn, stream, stacked, challenge)
+    return fold_launch(fn, stream, stacked, challenge, spec)
 
 
 def fold(spec, stacked, challenge):

@@ -38,12 +38,22 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from ..fields.spec import BN254_FQ, BN254_FR, FieldSpec
 from ..piop import tape as tape_mod
 from ..utils import expression as ex
 from . import build
 
 WARP = 32
 HEADERS = ("field.cuh", "sumcheck.cuh")
+FIELDS = {BN254_FR.p: "Fr", BN254_FQ.p: "Fq"}  # the field structs of csrc/field.cuh
+
+
+def field_name(spec: FieldSpec) -> str:
+    """The struct of csrc/field.cuh that computes in `spec`."""
+    try:
+        return FIELDS[spec.p]
+    except KeyError:
+        raise NotImplementedError(f"K3 is built for BN254 Fr and Fq, not {spec.name}") from None
 
 ROUND_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -69,32 +79,37 @@ _KERNELS: Dict[Tuple, RoundKernel] = {}  # by structure()
 BUILDS: List[RoundKernel] = []  # every kernel this process loaded, in order
 
 
-def structure(instrs, num_regs: int, out_reg: int, tables: int, degree: int) -> Tuple:
+def structure(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
+              spec: FieldSpec = BN254_FR) -> Tuple:
     """What the generated source depends on (the cache key of a process)."""
     a = np.ascontiguousarray(instrs, dtype=np.int32)
-    return (a.tobytes(), a.shape[0], int(num_regs), int(out_reg), int(tables), int(degree))
+    return (a.tobytes(), a.shape[0], int(num_regs), int(out_reg), int(tables), int(degree),
+            field_name(spec))
 
 
-def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int) -> str:
-    """C++ of the struct Tape and the library's entry points for one tape."""
+def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
+           spec: FieldSpec = BN254_FR) -> str:
+    """C++ of the struct Tape and the library's entry points for one tape
+    over `spec` (BN254 Fr or Fq)."""
     instrs = np.asarray(instrs, dtype=np.int32)
     if degree < 1:
         raise ValueError(f"degree must be at least 1, got {degree}")
+    field = field_name(spec)
     ops = instrs[:, 0].tolist()
     body = []
     for op, a, b, dst in instrs.tolist():
         if op == tape_mod.OP_ADD:
-            rhs = f"fe_add<Fr>(r{a}, r{b})"
+            rhs = f"fe_add<F>(r{a}, r{b})"
         elif op == tape_mod.OP_MUL:
-            rhs = f"sc_mul(r{a}, r{b})"
+            rhs = f"sc_mul<F>(r{a}, r{b})"
         elif op == tape_mod.OP_NEG:
-            rhs = f"fe_neg<Fr>(r{a})"
+            rhs = f"fe_neg<F>(r{a})"
         elif op == tape_mod.OP_CONST:
             rhs = f"sc_const(consts, {a})"
         elif op == tape_mod.OP_LOAD and a == tables:
-            rhs = "sc_identity(ids, i, tm1)"
+            rhs = "sc_identity<F>(ids, i, tm1)"
         elif op == tape_mod.OP_LOAD and 0 <= a < tables:
-            rhs = f"sc_leaf(state, s, {a}, i, tm1)"
+            rhs = f"sc_leaf<F>(state, s, {a}, i, tm1)"
         else:
             raise ValueError(f"bad tape instruction {(op, a, b, dst)} for {tables} tables")
         body.append(f"    r{dst} = {rhs};")
@@ -103,12 +118,13 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int) -> str
         "// Generated by plonkish_tpu_torch/kernels/sumcheck_gen.py: the sum-check",
         f"// round kernel K3 for one expression tape ({len(ops)} instructions, "
         f"{ops.count(tape_mod.OP_MUL)} products,",
-        f"// {num_regs} registers, {tables} tables, degree {degree}).",
+        f"// {num_regs} registers, {tables} tables, degree {degree}, over {spec.name}).",
         '#include "sumcheck.cuh"',
         "",
         "namespace pk {",
         "",
         "struct Tape {",
+        f"  using F = {field};",
         f"  static constexpr int DEGREE = {degree};",
         "  PK_HD static Fe eval(const uint32_t* state, int64_t s, int64_t i, int tm1,",
         "                       const uint32_t* consts, const uint32_t* ids) {",
@@ -199,8 +215,8 @@ def _nvcc_build(cu: pathlib.Path, lib: pathlib.Path, log: pathlib.Path) -> float
 
 
 def prebuild(tapes: Sequence[Tuple]) -> List[RoundKernel]:
-    """Kernels for several tapes (instrs, num_regs, out_reg, tables, degree);
-    the missing ones are built together, one nvcc for each, all started at
+    """Kernels for several tapes (instrs, num_regs, out_reg, tables, degree
+    [, spec]); the missing ones are built together, one nvcc for each, all started at
     once."""
     keys = [structure(*t) for t in tapes]
     todo = {}
@@ -221,21 +237,22 @@ def prebuild(tapes: Sequence[Tuple]) -> List[RoundKernel]:
         for key, src in todo.items():
             _, lib, log = _paths(src)
             text = log.read_text() if log.exists() else ""
-            _KERNELS[key] = _open(lib, key[-1], text, seconds.get(key, 0.0))
+            _KERNELS[key] = _open(lib, key[5], text, seconds.get(key, 0.0))
             BUILDS.append(_KERNELS[key])
     return [_KERNELS[key] for key in keys]
 
 
-def kernel(instrs, num_regs: int, out_reg: int, tables: int, degree: int) -> RoundKernel:
-    """The CUDA round kernel of one tape, built at its first use."""
-    return prebuild([(instrs, num_regs, out_reg, tables, degree)])[0]
+def kernel(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
+           spec: FieldSpec = BN254_FR) -> RoundKernel:
+    """The CUDA round kernel of one tape over `spec`, built at its first use."""
+    return prebuild([(instrs, num_regs, out_reg, tables, degree, spec)])[0]
 
 
 def twin(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
-         opt: str = "-O1") -> RoundKernel:
+         opt: str = "-O1", spec: FieldSpec = BN254_FR) -> RoundKernel:
     """The same generated source built with g++ (CPU tests only): sc_round
     runs the kernel's blocks and lanes one after another."""
-    src = source(instrs, num_regs, out_reg, tables, degree)
+    src = source(instrs, num_regs, out_reg, tables, degree, spec)
     tag = digest(src, ["g++", opt])
     cu = build.BUILD / f"sc_round_twin_{tag}.cu"
     lib_path = build.BUILD / f"libsc_round_twin_{tag}.so"

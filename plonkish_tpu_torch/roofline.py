@@ -82,6 +82,18 @@ def fold_work(tables: int, pairs: int) -> Tuple[int, int]:
     return tables * pairs * FE_MUL_IMAD, tables * pairs * 3 * FE_BYTES
 
 
+def base_fold_work(n: int, xi: int, p: int) -> Tuple[int, int]:
+    """The IPA base fold L + xi * R over n affine points, for this xi: one
+    doubling per bit of xi below its top, one mixed addition per set bit
+    below the top and one for L, then the affine result by Fermat (a squaring per bit of
+    p - 2 and a product per set bit) and 4 products.  L and R read once, the
+    affine output written once."""
+    inv = (p - 2).bit_length() + bin(p - 2).count("1")
+    per_point = (JDBL_MULS * max(0, xi.bit_length() - 1)
+                 + MADD_MULS * bin(xi).count("1") + inv + 4)
+    return n * per_point * FE_MUL_IMAD, n * 3 * 2 * FE_BYTES
+
+
 def chain_work(n: int, chain: int) -> Tuple[int, int]:
     """K5: `chain` products per element; a and b read, out written."""
     return n * chain * FE_MUL_IMAD, n * 3 * FE_BYTES

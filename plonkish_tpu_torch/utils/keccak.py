@@ -1,4 +1,4 @@
-# Copied from plonkish_tpu/utils/keccak.py; the native hasher is left out.
+# Copied from plonkish_tpu/utils/keccak.py; the native hasher is always the choice.
 """Keccak-256 (original Keccak padding 0x01, as used by Ethereum / sha3 crate's
 `Keccak256`, NOT NIST SHA3-256).
 
@@ -116,7 +116,40 @@ class _PyKeccak256:
         return lanes, self._buf
 
 
-Keccak256 = _PyKeccak256
+class _NativeKeccak256:
+    """Buffering hasher that defers to the native one-shot kernel (streaming
+    Keccak of a message equals one-shot Keccak of its concatenation)."""
+
+    __slots__ = ("_parts",)
+
+    def __init__(self):
+        self._parts = []
+
+    def update(self, data: bytes):
+        self._parts.append(bytes(data))
+        return self
+
+    def digest(self) -> bytes:
+        from ..ops.keccak_batch import keccak256_many
+
+        return keccak256_many([b"".join(self._parts)])[0]
+
+    def finalize_reset(self) -> bytes:
+        out = self.digest()
+        self._parts = []
+        return out
+
+    def export_state(self):
+        """See _PyKeccak256.export_state (replays absorbs in Python —
+        transcript traffic is tiny)."""
+        h = _PyKeccak256()
+        h.update(b"".join(self._parts))
+        return h.export_state()
+
+
+# The transcript's hasher: the native one, built with g++ at its first use
+# (ops/_keccak_native.py); a failed build raises there.
+Keccak256 = _NativeKeccak256
 
 
 def keccak256(data: bytes) -> bytes:

@@ -110,7 +110,7 @@ def test_cli_plotter():
 
 @pytest.mark.parametrize("argv", [
     ["--system", "sangria"], ["--system", "univariate_plonk"], ["--circuit", "sha256"],
-    ["--pcs", "brakedown"], ["--backend", "jax"], ["--mesh", "1,2"],
+    ["--system", "protostar"], ["--backend", "jax"], ["--mesh", "1,2"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:

@@ -211,7 +211,8 @@ def test_msm_window_combine_twin(twin, windows, c):
     jac = _jac(sums)
     pv = torch.stack([torch.zeros_like(jac), jac], 1).reshape(windows, 1, 2, 3, 8).contiguous()
     out = torch.empty((3, 8), dtype=torch.int32)
-    assert twin.twin_msm_window_combine(pv.data_ptr(), windows, c, out.data_ptr(), None) == 0
+    assert twin.twin_msm_window_combine(pv.data_ptr(), windows, c, out.data_ptr(),
+                                       kmsm.curve_id(C), None) == 0
     want = AffinePoint.identity(C)
     for s in reversed(sums):
         for _ in range(c):

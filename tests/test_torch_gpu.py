@@ -144,3 +144,76 @@ def test_golden_k3_on_the_card(cuda):
     proof = tr.into_proof()
     assert proof == (GOLDEN / "hyperplonk_kzg_k3.bin").read_bytes()
     backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(BN254_FR, proof))
+
+
+@pytest.mark.gpu
+def test_grumpkin_msm_kernels_match_plain(cuda):
+    from plonkish_tpu_torch.curves import msm as tmsm
+    from plonkish_tpu_torch.curves.host import AffinePoint
+    from plonkish_tpu_torch.curves.specs import GRUMPKIN_G1 as C
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.kernels import msm as kmsm
+
+    rng = random.Random(6)
+    n = 1000
+    s = [rng.randrange(C.scalar.p) for _ in range(n)]
+    bases = tmsm.fixed_base_msm(C, AffinePoint.generator(C), limb.from_canonical_ints(C.scalar, s, cuda))
+    bases[1] = bases[0]
+    bases[2:4] = 0
+    scalars = limb.from_ints([rng.randrange(C.scalar.p) for _ in range(n)], cuda)
+    c = tmsm.window_size(n)
+    w = tmsm.num_windows(C, c)
+    keys, src, nb = tmsm.msm_entries(scalars, c, w)
+    k1 = kmsm.msm_bucket_sums_cuda(C, bases, keys, src, w * nb)
+    assert torch.equal(_affine(C, k1), _affine(C, kmsm.msm_bucket_sums_plain(C, bases, keys, src, w * nb)))
+    buckets = k1.reshape(w, nb, 3, 8)
+    k2 = kmsm.msm_window_sums_cuda(C, buckets, c)
+    assert torch.equal(_affine(C, k2[None]), _affine(C, kmsm.msm_window_sums_plain(C, buckets, c)[None]))
+
+
+@pytest.mark.gpu
+def test_fq_sumcheck_kernels_match_plain(cuda):
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.host import Fp
+    from plonkish_tpu_torch.fields.spec import BN254_FQ as F
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.models import circuits
+    from plonkish_tpu_torch.piop import sum_check as sc
+    from plonkish_tpu_torch.poly.multilinear import MLPoly
+
+    rng = random.Random(7)
+    num_vars = 6
+    expr = circuits.vanilla_plonk_expression(F, num_vars)
+    polys = [MLPoly.from_ints(F, [rng.randrange(F.p) for _ in range(1 << num_vars)], cuda)
+             for _ in range(1 + max(q.poly for q in expr.used_query()))]
+    state = sc.ProverState(F, num_vars, Fp.zero(F), sc.VirtualPolynomial(
+        expr, polys, [Fp(rng.randrange(F.p), F) for _ in range(3)],
+        [[Fp(rng.randrange(F.p), F) for _ in range(num_vars)]]))
+    prover = sc.EvaluationsProver(state)
+    ids = sc.identity_params(F, 0, state.identity_offset, cuda)
+    args = (state.stacked, prover.instrs, prover.consts, prover.tape.num_regs,
+            prover.tape.out_reg, state.degree, ids)
+    assert torch.equal(ksc.sumcheck_round_cuda(F, *args), ksc.sumcheck_round_plain(F, *args))
+    ch = limb.const(F, 987654321, cuda)
+    assert torch.equal(ksc.fold_cuda(F, state.stacked, ch), ksc.fold_plain(F, state.stacked, ch))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xi", [0, 1, -1, 0x123456789ABCDEF0123456789ABCDEF])
+def test_ipa_base_fold_matches_plain(cuda, xi):
+    from plonkish_tpu_torch.curves import msm as tmsm
+    from plonkish_tpu_torch.curves.host import AffinePoint
+    from plonkish_tpu_torch.curves.specs import GRUMPKIN_G1 as C
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.kernels import ipa as kipa
+
+    rng = random.Random(8)
+    n = 512
+    s = [rng.randrange(C.scalar.p) for _ in range(2 * n)]
+    pts = tmsm.fixed_base_msm(C, AffinePoint.generator(C), limb.from_canonical_ints(C.scalar, s, cuda))
+    pts[3:5] = 0
+    left, right = pts[:n].contiguous(), pts[n:].contiguous()
+    right[7] = left[7]
+    xi %= C.scalar.p
+    assert torch.equal(kipa.base_fold_cuda(C, left, right, xi),
+                       kipa.base_fold_plain(C, left, right, xi))

@@ -853,7 +853,7 @@ def timing_new_instantiations(torch, k, gen, peaks):
          roofline.fold_work(t_count, rows // 2)),
         ("ipa_base_fold", "ipa_base_fold", "plonkish_tpu_torch/csrc/ipa.cu",
          "plonkish_tpu/pcs/ipa.py:157", fold_ms, fold_plain_ms, fold_err,
-         roofline.base_fold_work(half, xi, curve.base.p)),
+         roofline.base_fold_work(curve, half, xi)),
     ):
         if err:
             fail(f"{name} differs from its plain version at the k={k} shapes")

@@ -139,26 +139,9 @@ void twin_fe_op(int field, int op, const uint32_t* a, const uint32_t* b,
     fe_op<Fq>(op, a, b, out, n);
 }
 
-// p: Jacobian [n, 3, 8]; q: affine [n, 2, 8] with (0, 0) the identity.
-void twin_jac_madd(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n) {
-  for (int64_t i = 0; i < n; i++) {
-    Fe x = fe_load(q + 16 * i), y = fe_load(q + 16 * i + 8);
-    bool inf = fe_is_zero(x) && fe_is_zero(y);
-    jac_store(out + 24 * i, jac_madd<Fq>(jac_load(p + 24 * i), x, y, inf));
-  }
-}
-
-void twin_jac_add(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n) {
-  for (int64_t i = 0; i < n; i++)
-    jac_store(out + 24 * i, jac_add<Fq>(jac_load(p + 24 * i), jac_load(q + 24 * i)));
-}
-
-void twin_jac_dbl(const uint32_t* p, uint32_t* out, int64_t n) {
-  for (int64_t i = 0; i < n; i++)
-    jac_store(out + 24 * i, jac_dbl<Fq>(jac_load(p + 24 * i)));
-}
-
-// curve: CURVE_BN254 or CURVE_GRUMPKIN; op: 0 madd (q affine), 1 add, 2 dbl.
+// curve: CURVE_BN254 or CURVE_GRUMPKIN; op: 0 madd, 1 add, 2 dbl.  p: Jacobian
+// [n, 3, 8]; q: affine [n, 2, 8] with (0, 0) the identity for madd, Jacobian
+// for add, unread for dbl.
 int twin_jac_op(int curve, int op, const uint32_t* p, const uint32_t* q, uint32_t* out,
                 int64_t n) {
   if (curve != CURVE_BN254 && curve != CURVE_GRUMPKIN) return -1;

@@ -13,8 +13,8 @@
 
 namespace pk {
 
-// The curves that the kernels' entry points take (kernels/msm.py:
-// CURVE_IDS).  Both have a = 0, so the formulas below hold for both; only
+// The curves that the kernels' entry points take (kernels/__init__.py:
+// CURVES).  Both have a = 0, so the formulas below hold for both; only
 // the base field differs.
 constexpr int CURVE_BN254 = 0;  // BN254 G1, coordinates in Fq
 constexpr int CURVE_GRUMPKIN = 1;  // Grumpkin G1, coordinates in BN254's Fr

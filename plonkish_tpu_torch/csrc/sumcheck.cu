@@ -35,7 +35,7 @@ __global__ void fold_kernel(const uint32_t* state, int64_t n_out,
   fold_element<F>(e, state, fe_load(challenge), out);
 }
 
-// field: 0 = Fr, 1 = Fq (as in probe.cu); any other value is refused.
+// field: 0 = Fr, 1 = Fq (kernels/__init__.py: FIELDS); any other value is refused.
 extern "C" int sumcheck_fold(const uint32_t* state, long long n_out,
                              const uint32_t* challenge, uint32_t* out, int field,
                              void* stream) {

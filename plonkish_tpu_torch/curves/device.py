@@ -75,9 +75,13 @@ def jdbl(curve: CurveSpec, p):
 
 
 def _doubled(curve: CurveSpec, p, dbl):
-    """2p where `dbl` selects it: the doubling is computed only when some
-    point of the batch needs it (on the CPU, where the plain versions run,
-    the check costs nothing)."""
+    """2p where `dbl` selects it, computed only when some point of the batch
+    needs it.  On the card the check is one device read per call: the
+    kernels' paths never call this, and ``fixed_base_msm`` (setup) reads
+    once per window and chunk, 32 times for an SRS of 2^20 points.
+    Computing the doubling every time instead made the KZG setup at k = 20
+    about 50 % slower on an H100 (PERF.md): random batches almost never
+    need it."""
     if bool(dbl.any()):
         return jdbl(curve, p)
     return p

@@ -23,9 +23,8 @@ import torch
 from ..curves import device as cdev
 from ..curves.specs import GRUMPKIN_G1, CurveSpec
 from ..fields import limb
-from . import LAUNCHES
+from . import LAUNCHES, curve_id
 from . import build
-from .msm import curve_id
 
 FOLD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]

@@ -12,7 +12,7 @@ points and BN254's kernels are compiled in ``csrc/msm.cu``, Grumpkin's in
 Both run on BN254 G1 (coordinates in Fq; KZG, Gemini, Zeromorph) and on
 Grumpkin G1 (coordinates in BN254's Fr; IPA, Hyrax): the CUDA code is a
 template over the base field, and the curve is an argument of every entry
-point (``CURVE_IDS``).
+point (``kernels.CURVES``).
 
 Inputs of K1: the affine basis ``int32[N, 2, 8]`` (Montgomery, over the
 curve's base field, identity as (0, 0)), and every (window, point) digit of
@@ -40,9 +40,9 @@ import torch
 
 from ..curves import device as cdev
 from ..curves.host import AffinePoint
-from ..curves.specs import BN254_G1, GRUMPKIN_G1, CurveSpec
+from ..curves.specs import BN254_G1
 from ..fields import limb
-from . import LAUNCHES
+from . import LAUNCHES, curve_id
 from . import build
 
 # Sizes compiled into csrc/msm.cuh (checked by ``msm_check_layout``).
@@ -59,18 +59,6 @@ def _check(t: torch.Tensor, dtype, tail, name):
         raise ValueError(f"{name}: bad shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-
-
-CURVE_IDS = {BN254_G1.name: 0, GRUMPKIN_G1.name: 1}  # csrc/curve.cuh: CURVE_BN254, CURVE_GRUMPKIN
-
-
-def curve_id(curve: CurveSpec) -> int:
-    """The curve id of `curve`: the kernels are built for BN254 G1 (KZG,
-    Gemini, Zeromorph) and Grumpkin G1 (IPA, Hyrax)."""
-    if curve.name not in CURVE_IDS:
-        raise NotImplementedError(f"the MSM kernels are built for BN254 G1 and Grumpkin G1, "
-                                  f"not {curve.name}")
-    return CURVE_IDS[curve.name]
 
 
 def check_layout(lib) -> None:

@@ -23,8 +23,7 @@ import ctypes
 import torch
 
 from ..fields import soa
-from ..fields.spec import BN254_FQ, BN254_FR, FieldSpec
-from . import LAUNCHES
+from . import LAUNCHES, field_id
 from . import build
 
 VARIANTS = ("u32", "f32")
@@ -34,14 +33,6 @@ MAX_BLOCKS = 132 * 64  # grid-stride beyond this many blocks
 CHAIN_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-
-
-def _field_code(spec: FieldSpec) -> int:
-    if spec is BN254_FR:
-        return 0
-    if spec is BN254_FQ:
-        return 1
-    raise NotImplementedError("the probe kernel is built for BN254 Fr and Fq")
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, chain: int, variant: str):
@@ -80,7 +71,7 @@ def chain_launch(chain_fn, stream, spec, a, b, chain, variant, per_thread=1,
         return out
     blocks = min(MAX_BLOCKS, -(-n // (threads * per_thread)))
     rc = chain_fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, chain,
-                  _field_code(spec), VARIANTS.index(variant), per_thread, blocks,
+                  field_id(spec), VARIANTS.index(variant), per_thread, blocks,
                   threads, stream)
     if rc != 0:
         raise RuntimeError(f"mont_mul_chain launch failed: error {rc}")

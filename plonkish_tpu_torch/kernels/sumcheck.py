@@ -32,23 +32,11 @@ import numpy as np
 import torch
 
 from ..fields import limb
-from ..fields.spec import BN254_FQ, BN254_FR, FieldSpec
+from ..fields.spec import BN254_FR, FieldSpec
 from ..piop import tape as tape_mod
-from . import LAUNCHES
+from . import LAUNCHES, field_id
 from . import build
 from . import sumcheck_gen
-
-
-FIELD_IDS = {BN254_FR.p: 0, BN254_FQ.p: 1}  # the `field` argument of csrc/sumcheck.cu
-
-
-def _check_spec(spec: FieldSpec) -> int:
-    """The field id of `spec`; the kernels are built for BN254 Fr (HyperPlonk
-    over BN254) and BN254 Fq (over Grumpkin's scalar field)."""
-    if spec.p not in FIELD_IDS:
-        raise NotImplementedError(f"the sum-check kernels are built for BN254 Fr and Fq, "
-                                  f"not {spec.name}")
-    return FIELD_IDS[spec.p]
 
 
 def _check_state(stacked: torch.Tensor):
@@ -131,7 +119,7 @@ def round_launch(kern, stream, stacked, consts, degree, id_params):
 
 def sumcheck_round_cuda(spec, stacked, instrs, consts, num_regs, out_reg,
                         degree, id_params):
-    _check_spec(spec)
+    field_id(spec)
     if stacked.device.type != "cuda":
         raise ValueError("state must be a CUDA tensor")
     kern = sumcheck_gen.kernel(instrs, num_regs, out_reg, stacked.shape[0], degree, spec)
@@ -162,7 +150,7 @@ def fold_plain(spec, stacked, challenge):
 
 def fold_launch(fold_fn, stream, stacked, challenge, spec: FieldSpec = BN254_FR):
     """Launch K4 through `fold_fn` (``sumcheck_fold`` or its host twin)."""
-    field = _check_spec(spec)
+    field = field_id(spec)
     _check_state(stacked)
     t_count, rows, _ = stacked.shape
     ch = challenge.to(stacked.device).contiguous()
@@ -176,7 +164,7 @@ def fold_launch(fold_fn, stream, stacked, challenge, spec: FieldSpec = BN254_FR)
 
 
 def fold_cuda(spec, stacked, challenge):
-    _check_spec(spec)
+    field_id(spec)
     if stacked.device.type != "cuda":
         raise ValueError("state must be a CUDA tensor")
     fn = build.bind(build.lib().sumcheck_fold, FOLD_ARGS)

@@ -38,23 +38,13 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from ..fields.spec import BN254_FQ, BN254_FR, FieldSpec
+from ..fields.spec import BN254_FR, FieldSpec
 from ..piop import tape as tape_mod
 from ..utils import expression as ex
-from . import build
+from . import build, field_struct
 
 WARP = 32
 HEADERS = ("field.cuh", "sumcheck.cuh")
-FIELDS = {BN254_FR.p: "Fr", BN254_FQ.p: "Fq"}  # the field structs of csrc/field.cuh
-
-
-def field_name(spec: FieldSpec) -> str:
-    """The struct of csrc/field.cuh that computes in `spec`."""
-    try:
-        return FIELDS[spec.p]
-    except KeyError:
-        raise NotImplementedError(f"K3 is built for BN254 Fr and Fq, not {spec.name}") from None
-
 ROUND_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p]
@@ -84,7 +74,7 @@ def structure(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
     """What the generated source depends on (the cache key of a process)."""
     a = np.ascontiguousarray(instrs, dtype=np.int32)
     return (a.tobytes(), a.shape[0], int(num_regs), int(out_reg), int(tables), int(degree),
-            field_name(spec))
+            field_struct(spec))
 
 
 def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
@@ -94,7 +84,7 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
     instrs = np.asarray(instrs, dtype=np.int32)
     if degree < 1:
         raise ValueError(f"degree must be at least 1, got {degree}")
-    field = field_name(spec)
+    field = field_struct(spec)
     ops = instrs[:, 0].tolist()
     body = []
     for op, a, b, dst in instrs.tolist():

@@ -16,7 +16,8 @@ published FP32 rate) and the one kernel K5 measures in this process
 share uses the larger of the two and says which (``imad_rate``).
 
 The counts are the port's algorithms': sorted Pippenger buckets (K1, K2), the
-tape-interpreting round kernel (K3) and the fold (K4).
+tape-interpreting round kernel (K3) and the fold (K4); the IPA base fold's
+is the least its function needs (``base_fold_work``).
 """
 
 from __future__ import annotations
@@ -82,16 +83,28 @@ def fold_work(tables: int, pairs: int) -> Tuple[int, int]:
     return tables * pairs * FE_MUL_IMAD, tables * pairs * 3 * FE_BYTES
 
 
-def base_fold_work(n: int, xi: int, p: int) -> Tuple[int, int]:
-    """The IPA base fold L + xi * R over n affine points, for this xi: one
-    doubling per bit of xi below its top, one mixed addition per set bit
-    below the top and one for L, then the affine result by Fermat (a squaring per bit of
-    p - 2 and a product per set bit) and 4 products.  L and R read once, the
-    affine output written once."""
-    inv = (p - 2).bit_length() + bin(p - 2).count("1")
-    per_point = (JDBL_MULS * max(0, xi.bit_length() - 1)
-                 + MADD_MULS * bin(xi).count("1") + inv + 4)
-    return n * per_point * FE_MUL_IMAD, n * 3 * 2 * FE_BYTES
+def base_fold_work(curve, n: int, xi: int) -> Tuple[int, int]:
+    """The least work of the IPA base fold L + xi * R over n affine points,
+    for this xi.  xi splits by the curve's endomorphism into k1 + k2 * lambda
+    of about half its bits each (curves/device.py::_glv_split), and k1 * R +
+    k2 * phi(R) is one double-and-add over both halves at once (Shamir): one
+    product for phi(R) and one mixed addition for R + phi(R) when both halves
+    are nonzero, a doubling per joint bit below the top, a mixed addition per
+    joint bit below the top where either half is set, and one for L.  The
+    affine output takes a batch inversion (3 products a point and one
+    inversion by Fermat for the batch) and 4 products a point.  L and R read
+    once, the affine output written once."""
+    from .curves.device import _glv_split
+
+    k1, k2 = (abs(v) for v in _glv_split(curve, xi % curve.scalar.p))
+    joint = k1 | k2
+    table = 1 + MADD_MULS if k1 and k2 else 0
+    shamir = (JDBL_MULS * max(0, joint.bit_length() - 1)
+              + MADD_MULS * max(0, bin(joint).count("1") - 1))
+    per_point = table + shamir + MADD_MULS + 3 + 4
+    p = curve.base.p
+    inversion = (p - 2).bit_length() + bin(p - 2).count("1")
+    return (n * per_point + inversion) * FE_MUL_IMAD, n * 3 * 2 * FE_BYTES
 
 
 def chain_work(n: int, chain: int) -> Tuple[int, int]:

@@ -16,6 +16,7 @@ import random
 import pytest
 import torch
 
+from plonkish_tpu_torch import kernels
 from plonkish_tpu_torch.curves import device as cdev
 from plonkish_tpu_torch.curves import msm as tmsm
 from plonkish_tpu_torch.curves.host import AffinePoint, msm_host
@@ -50,9 +51,8 @@ def twin():
         pytest.skip(f"no host C++ compiler: {e}")
     lib = ctypes.CDLL(str(path))
     lib.twin_fe_op.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int64]
-    for name in ("twin_jac_madd", "twin_jac_add"):
-        getattr(lib, name).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64]
-    lib.twin_jac_dbl.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+    build.bind(lib.twin_jac_op, [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+               + [ctypes.c_int64])
     kmsm.check_layout(lib)
     build.bind(lib.twin_msm_bucket_level, kmsm.LEVEL_ARGS)
     build.bind(lib.twin_msm_window_level, kmsm.WINDOW_ARGS)
@@ -110,13 +110,14 @@ def test_curve_ops(twin):
     pj, qj = _jac(ps), _jac(qs)
     qa = cdev.affine_from_host(C, qs, "cpu")
     out = torch.empty_like(pj)
-    twin.twin_jac_madd(pj.data_ptr(), qa.data_ptr(), out.data_ptr(), n)
+    bn254 = kernels.curve_id(C)
+    assert twin.twin_jac_op(bn254, 0, pj.data_ptr(), qa.data_ptr(), out.data_ptr(), n) == 0
     assert cdev.jac_to_host(C, out) == [p + q for p, q in zip(ps, qs)]
-    twin.twin_jac_add(pj.data_ptr(), qj.data_ptr(), out.data_ptr(), n)
+    assert twin.twin_jac_op(bn254, 1, pj.data_ptr(), qj.data_ptr(), out.data_ptr(), n) == 0
     assert cdev.jac_to_host(C, out) == [p + q for p, q in zip(ps, qs)]
-    twin.twin_jac_add(qj.data_ptr(), pj.data_ptr(), out.data_ptr(), n)
+    assert twin.twin_jac_op(bn254, 1, qj.data_ptr(), pj.data_ptr(), out.data_ptr(), n) == 0
     assert cdev.jac_to_host(C, out) == [q + p for p, q in zip(ps, qs)]
-    twin.twin_jac_dbl(pj.data_ptr(), out.data_ptr(), n)
+    assert twin.twin_jac_op(bn254, 2, pj.data_ptr(), pj.data_ptr(), out.data_ptr(), n) == 0
     assert cdev.jac_to_host(C, out) == [p + p for p in ps]
     # the plain torch formulas agree on the same inputs
     x, y, inf = cdev.unpack_affine(qa)
@@ -212,7 +213,7 @@ def test_msm_window_combine_twin(twin, windows, c):
     pv = torch.stack([torch.zeros_like(jac), jac], 1).reshape(windows, 1, 2, 3, 8).contiguous()
     out = torch.empty((3, 8), dtype=torch.int32)
     assert twin.twin_msm_window_combine(pv.data_ptr(), windows, c, out.data_ptr(),
-                                       kmsm.curve_id(C), None) == 0
+                                       kernels.curve_id(C), None) == 0
     want = AffinePoint.identity(C)
     for s in reversed(sums):
         for _ in range(c):

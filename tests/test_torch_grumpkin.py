@@ -17,7 +17,7 @@ from plonkish_tpu.fields import BN254_FQ as REF_FQ, Fp as RefFp
 from plonkish_tpu.models import circuits as ref_circuits
 from plonkish_tpu.piop import sum_check as ref_sc
 from plonkish_tpu.poly.multilinear import MLPoly as RefMLPoly
-from plonkish_tpu_torch import convert
+from plonkish_tpu_torch import convert, kernels
 from plonkish_tpu_torch.curves import device as cdev
 from plonkish_tpu_torch.curves import msm as tmsm
 from plonkish_tpu_torch.curves.host import AffinePoint, msm_host
@@ -73,12 +73,13 @@ def _points(n, seed, curve=C):
 def test_generator_and_kernels_accept_only_the_ported_curves():
     g = AffinePoint.generator(C)
     assert g.is_on_curve() and g.scalar_mul(Q).is_identity()
-    assert kmsm.curve_id(BN254_G1) == 0 and kmsm.curve_id(C) == 1
+    assert kernels.curve_id(BN254_G1) == 0 and kernels.curve_id(C) == 1
     with pytest.raises(NotImplementedError):
-        kmsm.curve_id(PALLAS)
-    assert ksc._check_spec(BN254_FR) == 0 and ksc._check_spec(BN254_FQ) == 1
+        kernels.curve_id(PALLAS)
+    assert kernels.field_id(BN254_FR) == 0 and kernels.field_id(BN254_FQ) == 1
+    assert [kernels.field_struct(s) for s in (BN254_FR, BN254_FQ)] == ["Fr", "Fq"]
     with pytest.raises(NotImplementedError):
-        ksc._check_spec(PALLAS_BASE)
+        kernels.field_id(PALLAS_BASE)
     # a tensor on another device than the CPU launches the kernel or raises
     meta = limb.zeros((4, 2)).to("meta")
     with pytest.raises((RuntimeError, ValueError)):
@@ -149,7 +150,7 @@ def test_curve_ops_twin_and_plain(twin):
     for op, q, want in ((0, qa, [p + q for p, q in zip(ps, qs)]),
                         (1, qj, [p + q for p, q in zip(ps, qs)]),
                         (2, qj, [p + p for p in ps])):
-        assert twin.twin_jac_op(1, op, pj.data_ptr(), q.data_ptr(), out.data_ptr(), n) == 0
+        assert twin.twin_jac_op(kernels.curve_id(C), op, pj.data_ptr(), q.data_ptr(), out.data_ptr(), n) == 0
         assert cdev.jac_to_host(C, out) == want
     assert cdev.jac_to_host(C, cdev.padd(C, pj, qj)) == [p + q for p, q in zip(ps, qs)]
     assert cdev.jac_to_host(C, cdev.pdbl(C, pj)) == [p + p for p in ps]

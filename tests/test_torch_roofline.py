@@ -15,6 +15,8 @@ from plonkish_tpu.fields.spec import BN254_FR as REF_FR
 from plonkish_tpu.models import circuits as ref_circuits
 from plonkish_tpu_torch import roofline
 from plonkish_tpu_torch.backend.hyperplonk.preprocessor import compose
+from plonkish_tpu_torch.curves import device as cdev
+from plonkish_tpu_torch.curves.specs import GRUMPKIN_G1
 from plonkish_tpu_torch.fields import limb
 from plonkish_tpu_torch.fields.host import Fp
 from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -24,6 +26,7 @@ from plonkish_tpu_torch.poly.multilinear import MLPoly
 
 torch.set_num_threads(1)
 
+Q = GRUMPKIN_G1.base.p
 CIRCUITS = ["rand_vanilla_plonk_circuit", "rand_vanilla_plonk_with_lookup_circuit"]
 
 
@@ -77,6 +80,30 @@ def test_kernel_counts_by_hand():
     assert roofline.chain_work(1 << 22, 16) == ((1 << 22) * 16 * 256, (1 << 22) * 96)
     assert roofline.msm_mul_ops(10, 4, 3, 5, 3) == 6 * 11 * 256 + k2_ops
     assert roofline.msm_hbm_bytes(8, 10, 4, 3, 5, 3) == (8 * 64 + 10 * 8 + 4 * 96) + 16 * 96
+
+
+def test_base_fold_counts_the_glv_split():
+    """The IPA base fold's least work: Shamir over the GLV halves of xi, one
+    mixed addition for L, a batch inversion and the affine output."""
+    inv = (Q - 2).bit_length() + bin(Q - 2).count("1")  # one Fermat inversion
+    out_bytes = 5 * 3 * 2 * 32
+    # xi = 0 and 1: no doubling; k2 = 0, so no table of R + phi(R)
+    assert roofline.base_fold_work(GRUMPKIN_G1, 5, 0) == ((5 * (11 + 7) + inv) * 256, out_bytes)
+    assert roofline.base_fold_work(GRUMPKIN_G1, 5, 1) == ((5 * (11 + 7) + inv) * 256, out_bytes)
+    # 0b1011: 3 doublings, 2 additions after the top bit
+    assert roofline.base_fold_work(GRUMPKIN_G1, 5, 11) == (
+        (5 * (3 * 7 + 2 * 11 + 11 + 7) + inv) * 256, out_bytes)
+    # a random xi: both halves of about 128 bits, so about half the
+    # doublings of a plain ladder over xi's 254 bits
+    xi = random.Random(6).randrange(GRUMPKIN_G1.scalar.p)
+    k1, k2 = (abs(v) for v in cdev._glv_split(GRUMPKIN_G1, xi))
+    assert max(k1, k2).bit_length() <= 130
+    joint = k1 | k2
+    per_point = (1 + 11 + 7 * (joint.bit_length() - 1) + 11 * (bin(joint).count("1") - 1)
+                 + 11 + 7)
+    ops, _ = roofline.base_fold_work(GRUMPKIN_G1, 1 << 19, xi)
+    assert ops == ((1 << 19) * per_point + inv) * 256
+    assert per_point < 2100
 
 
 def test_sumcheck_counts_by_hand_at_k3():

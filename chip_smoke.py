@@ -10,24 +10,26 @@ Phases, each printed on its own line; any failure exits non-zero:
    Grumpkin G1, K4 over Fr and Fq, the IPA base fold) and, in parallel with
    them, the sum-check round kernels K3 that kernels/sumcheck_gen.py
    generates for the expressions this script runs (over Fr: vanilla PLONK,
-   vanilla PLONK with lookups, a degree-1 single leaf and a wide degree-9
-   expression of 41 tables; over Fq: vanilla PLONK and vanilla PLONK with
-   lookups), with each one's ptxas line and build seconds; the vanilla and
-   lookup kernels must have a 0-byte stack frame and no spills; print the
-   card;
+   vanilla PLONK with lookups, a degree-1 single leaf, a wide degree-9
+   expression of 41 tables, and the deciders of Protostar and Sangria over
+   each of the two circuits; over Fq: vanilla PLONK, vanilla PLONK with
+   lookups and Protostar's vanilla decider, the IPA path's), with each one's
+   ptxas line and build seconds; the vanilla and lookup kernels must have a
+   0-byte stack frame and no spills; print the card;
 2. every kernel against its plain PyTorch version on the card, on the same
    inputs, exact equality required (MSM K1+K2 on BN254 at 2^12 points with
    edge cases, at 2^16 random points and at 2^16 selector-like scalars in
    {0, 1, 2, p - 1}, and on Grumpkin at 2^12 with edge cases and 2^16 at
    random; one variable_base_msm at 2^16 enqueued under
    torch.cuda.set_sync_debug_mode("error") up to its one-point read;
-   sum-check round K3 for the four Fr expressions and the two Fq ones at
-   2^16 pairs and at one pair, fold K4 over Fr and Fq, the IPA base fold at
+   sum-check round K3 for every expression of phase 1 at 2^16 pairs and at
+   one pair, fold K4 over Fr and Fq, the IPA base fold at
    2^12 points with identities for xi in {0, 1, q - 1, random}, the
    mont_mul chain probe K5 with both multipliers at 2^16 elements);
 3. the nine frozen HyperPlonk proofs of tests/golden (KZG k3, k5 and lookup
-   k5; Gemini, Zeromorph, IPA and Hyrax k5; Brakedown k3 and k5) produced on
-   the card, byte for byte, and accepted by the port's verifier;
+   k5; Gemini, Zeromorph, IPA and Hyrax k5; Brakedown k3 and k5) and the
+   Protostar decider proof (KZG, k3, after two folds) produced on the card,
+   byte for byte, and accepted by the port's verifier;
 4. HyperPlonk over BN254 with multilinear KZG on a random vanilla-PLONK
    circuit at k = 20: setup, preprocess, a warm-up prove, a timed prove with
    its span breakdown and kernel launch counts, verify, and a flipped byte
@@ -52,8 +54,17 @@ Phases, each printed on its own line; any failure exits non-zero:
    to the curve on the card), preprocess, a warm-up prove, a timed prove
    with its span breakdown and launch counts (K1 and K2 on Grumpkin, K3 and
    K4 over Fq, the IPA base fold), verify, and a flipped byte rejected; then
-   the harness's pcs system at k = 20 for gemini, zeromorph, hyrax,
-   brakedown and ipa, with the rows read back.
+   the harness's pcs system at k = 18 for gemini, zeromorph, hyrax,
+   brakedown and ipa, with the rows read back (k = 20 until phase 8 came:
+   PERF.md keeps those rows);
+8. folding at full size: Protostar over BN254 with multilinear KZG on the
+   random vanilla-PLONK circuit of phase 4 at k = 20: setup, preprocess, then
+   timed, two folds (the circuit of phase 4 and one with another witness)
+   and the decider with the NARK of phase 4's circuit again, each fold's and the
+   decider's ms, the span breakdown, the peak device memory and the launches
+   of K1-K4 in that region (each must launch, and no K3 may be built there);
+   the decider verified and a flipped byte rejected; then the harness's
+   sangria system at k = 20 in process, its fold and decider rows read back.
 
 The last three lines of standard output are the kernels JSON line, the card
 as nvidia-smi reports it, and the result line.  The script imports no JAX
@@ -70,7 +81,16 @@ import threading
 import time
 
 K_FULL = 20
+K_PCS_ROWS = 18  # phase 7's harness rows, cut so that phase 8 fits the script's time
 PROVER_KERNELS = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+# the decider tapes of phase 8, the harness's sangria and the IPA path:
+# (name, scheme, circuit of models.circuits)
+DECIDERS = (
+    ("protostar_vanilla", "protostar", "rand_vanilla_plonk_circuit"),
+    ("protostar_lookup", "protostar", "rand_vanilla_plonk_with_lookup_circuit"),
+    ("sangria_vanilla", "sangria", "rand_vanilla_plonk_circuit"),
+    ("sangria_lookup", "sangria", "rand_vanilla_plonk_with_lookup_circuit"),
+)
 IPA_KERNELS = PROVER_KERNELS + ("ipa_base_fold",)
 NEW_PCS = ("gemini", "zeromorph", "hyrax", "brakedown", "ipa")
 
@@ -125,7 +145,8 @@ def main() -> int:
     kernels = phase5_timing(torch, shapes, main_path)
     harness_path = phase6_harness(K_FULL, LAUNCHES, reset_launches)
     ipa_path = phase7_ipa(torch, K_FULL, LAUNCHES, reset_launches)
-    phase7_harness(K_FULL, LAUNCHES, reset_launches)
+    phase7_harness(K_PCS_ROWS, LAUNCHES, reset_launches)
+    phase8_folding(torch, K_FULL, LAUNCHES, reset_launches, shapes)
     for row in kernels:  # each kernel's launches on the path that runs it
         if row["name"] == "mont_mul_chain":
             row["launches"] = harness_path["mont_mul_chain"]
@@ -222,11 +243,45 @@ def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_ex
     return state, EvaluationsProver(state)
 
 
+def decider_state(torch, num_vars, gen, device, scheme, circuit, spec):
+    """(state, EvaluationsProver) of the decider's sum-check of `scheme`
+    ("protostar" or "sangria") over the structure of `circuit` (a function
+    of models.circuits), on random tables, challenges, y and sum."""
+    from plonkish_tpu_torch.accumulation.protostar import (
+        ProtostarStrategy, protostar_expressions,
+    )
+    from plonkish_tpu_torch.fields.host import Fp
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.models import circuits
+    from plonkish_tpu_torch.piop.sum_check import (
+        EvaluationsProver, ProverState, VirtualPolynomial,
+    )
+    from plonkish_tpu_torch.poly.multilinear import MLPoly
+
+    info, _ = getattr(circuits, circuit)(spec, 4, random.Random(42), random.Random(0))
+    strategy = (ProtostarStrategy.Compressing if scheme == "protostar"
+                else ProtostarStrategy.NoCompressing)
+    exprs = protostar_expressions(info, strategy)
+    expr = exprs.expression
+    polys = [
+        MLPoly(spec, limb.to_mont(spec, rand_field(torch, spec, 1 << num_vars, gen, device)))
+        for _ in range(1 + max(q.poly for q in expr.used_query()))
+    ]
+    rng = random.Random(8)
+    # the folded challenges and u, then beta, gamma and alpha
+    challenges = [Fp(rng.randrange(spec.p), spec) for _ in range(exprs.num_folding_challenges + 4)]
+    y = [Fp(rng.randrange(spec.p), spec) for _ in range(num_vars)]
+    state = ProverState(spec, num_vars, Fp(rng.randrange(spec.p), spec),
+                        VirtualPolynomial(expr, polys, challenges, [y]))
+    return state, EvaluationsProver(state)
+
+
 def k3_cases(torch, num_vars, gen, device="cuda"):
     """K3's arguments (state, instrs, consts, num_regs, out_reg, degree) with
     the field, keyed (field name, expression), at 2^(num_vars - 1) pairs: the
-    four Fr expressions and the vanilla and lookup ones over Fq; with them
-    the vanilla prover state over Fr."""
+    four Fr expressions, the four folding deciders over Fr, and the vanilla
+    and lookup ones and Protostar's vanilla decider over Fq; with them the
+    vanilla prover state over Fr."""
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
     from plonkish_tpu_torch.kernels import sumcheck_gen
@@ -247,6 +302,12 @@ def k3_cases(torch, num_vars, gen, device="cuda"):
                                         spec)
             if (spec, name) == (BN254_FR, "vanilla"):
                 vanilla = (state, prover)
+    for spec, deciders in ((BN254_FR, DECIDERS), (BN254_FQ, DECIDERS[:1])):
+        for name, scheme, circuit in deciders:
+            state, prover = decider_state(torch, num_vars, gen, device, scheme, circuit, spec)
+            cases[(spec.name, name)] = (state.stacked, prover.instrs, prover.consts,
+                                        prover.tape.num_regs, prover.tape.out_reg, state.degree,
+                                        spec)
     fr = BN254_FR.name
     single = cases[(fr, "vanilla")][0][:1].contiguous()
     instrs, tape = remapped(ex.Polynomial(ex.Query(0, ex.Rotation(0))), 1)
@@ -511,6 +572,29 @@ def phase3_golden(torch, here):
         backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(spec, proof))
         log(f"[golden] {name}: {len(proof)} bytes equal, verified ({time.time() - t0:.1f}s)")
 
+    # the Protostar decider after two folds (tests/test_golden_proofs.py)
+    from plonkish_tpu_torch.accumulation.protostar import Protostar
+
+    t0 = time.time()
+    name = "protostar_kzg_decider_k3"
+    circuits = [rand_vanilla_plonk_circuit(BN254_FR, 3, random.Random(42), random.Random(seed))
+                for seed in (0, 100, 101, 102)]
+    scheme = Protostar(MultilinearKzg())
+    pp, vp = scheme.preprocess(scheme.setup(circuits[0][0], random.Random(0)), circuits[0][0])
+    acc = scheme.init_accumulator(pp)
+    for _, circuit in circuits[1:3]:
+        scheme.prove_accumulation_from_nark(pp, acc, circuit, Keccak256Transcript(BN254_FR))
+    before = acc.instance.clone()
+    tr = Keccak256Transcript(BN254_FR)
+    scheme.prove_decider_with_last_nark(pp, acc, circuits[3][1], tr)
+    proof = tr.into_proof()
+    with open(os.path.join(here, "tests", "golden", f"{name}.bin"), "rb") as fh:
+        if proof != fh.read():
+            fail(f"golden proof {name} differs on the card")
+    scheme.verify_decider_with_last_nark(vp, before, circuits[3][1].instances(),
+                                         Keccak256Transcript.from_proof(BN254_FR, proof))
+    log(f"[golden] {name}: {len(proof)} bytes equal, verified ({time.time() - t0:.1f}s)")
+
 
 # ------------------------------------------------------ 4 full size
 
@@ -591,7 +675,7 @@ def phase4_full(torch, k, launches, reset_launches):
         fail("a proof with a flipped byte was accepted")
     log(f"[k={k}] verify {times['verify']:.2f}s; flipped byte rejected")
     log(f"[k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
-    return main_path, {"pp": pp, "k": k}
+    return main_path, {"pp": pp, "k": k, "circuit": (ci, circuit)}
 
 
 # ------------------------------------------------------ 5 kernel timing
@@ -996,7 +1080,7 @@ def phase7_ipa(torch, k, launches, reset_launches):
 
 
 def phase7_harness(k, launches, reset_launches):
-    """The harness's pcs system at k for the five PCS of this slice, in
+    """The harness's pcs system at k for the five PCS besides KZG, in
     process, one timed sample each after the harness's own warm-up."""
     from plonkish_tpu_torch import benchmark
 
@@ -1021,6 +1105,127 @@ def phase7_harness(k, launches, reset_launches):
         if not all(float(v) > 0 for v in rows[0][1:]):
             fail(f"the harness row of {name} holds no time: {added}")
         log(f"[harness] {name} row: {','.join(rows[0])} ms")
+
+
+# ------------------------------------------------------ 8 folding at full size
+
+def phase8_folding(torch, k, launches, reset_launches, shapes):
+    """Protostar with multilinear KZG at k on phase 4's circuit structure: two
+    timed folds and the decider with the last NARK, then the harness's
+    sangria system at k."""
+    from plonkish_tpu_torch import benchmark
+    from plonkish_tpu_torch.accumulation.protostar import Protostar
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import sumcheck_gen
+    from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+    from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+    from plonkish_tpu_torch.utils import timer
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    spec = BN254_FR
+    times = {}
+    ci, first = shapes.pop("circuit")
+    t0 = time.time()
+    # the same structure (preprocess seed 1) with another witness; the last
+    # NARK is phase 4's circuit again (a synthesis at k = 20 takes 30 s)
+    other = rand_vanilla_plonk_circuit(spec, k, random.Random(1), random.Random(101))[1]
+    circuits = [first, other, first]
+    times["circuits"] = time.time() - t0
+    scheme = Protostar(MultilinearKzg())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    param = scheme.setup(ci, random.Random(0))
+    torch.cuda.synchronize()
+    times["setup"] = time.time() - t0
+    t0 = time.time()
+    pp, vp = scheme.preprocess(param, ci)
+    acc = scheme.init_accumulator(pp)
+    torch.cuda.synchronize()
+    times["preprocess"] = time.time() - t0
+    log(f"[fold k={k}] one more circuit {times['circuits']:.2f}s, setup {times['setup']:.2f}s, "
+        f"preprocess {times['preprocess']:.2f}s")
+
+    kernels_before = len(sumcheck_gen.BUILDS)
+    timer.set_sync(torch.cuda.synchronize)
+    timer.set_enabled(True)
+    timer.reset_trace()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    fold_ms = []
+    for circuit in circuits[:2]:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        scheme.prove_accumulation_from_nark(pp, acc, circuit, Keccak256Transcript(spec))
+        torch.cuda.synchronize()
+        fold_ms.append((time.time() - t0) * 1e3)
+    before = acc.instance.clone()
+    tr = Keccak256Transcript(spec)
+    t0 = time.time()
+    scheme.prove_decider_with_last_nark(pp, acc, circuits[2], tr)
+    torch.cuda.synchronize()
+    decider_ms = (time.time() - t0) * 1e3
+    fold_path = dict(launches)
+    timer.set_enabled(False)
+    peak = torch.cuda.max_memory_allocated()
+    proof = tr.into_proof()
+    built = len(sumcheck_gen.BUILDS) - kernels_before
+    log(f"[fold k={k}] folds {[round(v, 3) for v in fold_ms]} ms; decider with the last NARK "
+        f"{decider_ms:.3f} ms, {len(proof)} bytes; peak device memory {peak / 2**30:.2f} GiB")
+    spans = [(n, d, s) for n, d, s in timer.trace() if d <= 1]
+    for name, depth, sec in spans:
+        log(f"[fold k={k}] span {'  ' * depth}{name}: {sec * 1e3:.1f} ms")
+    top = sum(s for _, d, s in spans if d == 0)
+    log(f"[fold k={k}] outside top-level spans: {sum(fold_ms) + decider_ms - top * 1e3:.1f} ms")
+    log(f"[fold k={k}] kernel launches in the timed folds and decider: {json.dumps(fold_path)}; "
+        f"K3 kernels built or loaded in them: {built}")
+    if built:
+        fail("the timed folds or decider built a K3 kernel: phase 1 missed its tape")
+    for name in PROVER_KERNELS:
+        if fold_path[name] <= 0:
+            fail(f"kernel {name} was not launched in the k={k} folds and decider")
+
+    t0 = time.time()
+    scheme.verify_decider_with_last_nark(vp, before.clone(), circuits[2].instances(),
+                                         Keccak256Transcript.from_proof(spec, proof))
+    verify_s = time.time() - t0
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        scheme.verify_decider_with_last_nark(vp, before.clone(), circuits[2].instances(),
+                                             Keccak256Transcript.from_proof(spec, bytes(bad)))
+    except (ValueError, EOFError):
+        pass
+    else:
+        fail("a decider proof with a flipped byte was accepted")
+    log(f"[fold k={k}] decider verified in {verify_s:.2f}s; flipped byte rejected")
+    del scheme, pp, vp, acc, param, circuits, first, other, ci
+    torch.cuda.empty_cache()
+
+    # the harness's sangria system, in process
+    name = "sangria"
+    path = os.path.join(benchmark.BENCH_DIR, name)
+    size = os.path.getsize(path) if os.path.exists(path) else 0
+    kernels_before = len(sumcheck_gen.BUILDS)
+    reset_launches()
+    t0 = time.time()
+    benchmark.main(["--system", name, "--k", f"{k}..{k + 1}", "--samples", "1"])
+    built = len(sumcheck_gen.BUILDS) - kernels_before
+    log(f"[harness] {name} k={k}: {time.time() - t0:.1f}s; kernel launches "
+        f"{json.dumps(dict(launches))}; K3 kernels built or loaded: {built}")
+    if built:
+        fail("the harness's sangria decider built a K3 kernel: phase 1 missed its tape")
+    with open(path) as fh:
+        fh.seek(size)
+        added = fh.read().splitlines()
+    if any(line.startswith("# FAILED") for line in added):
+        fail(f"the harness wrote a FAILED row to {name}: {added}")
+    rows = [line.split(",") for line in added if not line.startswith("#")]
+    decider = [line for line in added if line.startswith(f"# decider k={k}: ")]
+    if len(rows) != 1 or len(rows[0]) != 2 or int(rows[0][0]) != k or float(rows[0][1]) <= 0:
+        fail(f"the harness's fold row of {name} at k={k} is missing: {added}")
+    if len(decider) != 1:
+        fail(f"the harness's decider row of {name} at k={k} is missing: {added}")
+    log(f"[harness] {name} rows: fold {','.join(rows[0])} ms; {decider[0][2:]}")
 
 
 if __name__ == "__main__":

@@ -17,20 +17,27 @@ in the same process (``roofline.measure_peaks``).
 
 Systems: ``hyperplonk`` (a whole proof), ``zero_check`` (the sum-check prover
 alone over the composed vanilla-PLONK expression), ``pcs`` (commit and open of
-one polynomial); ``--pcs`` picks kzg, brakedown, gemini, zeromorph, ipa or
-hyrax for both ``pcs`` and ``hyperplonk``, the rows of ``pcs`` going to
-target/bench_torch/pcs_<name>.  The multilinear KZG SRS is cached under
-target/srs_cache_torch/; ``--setup-only`` writes the zero-check tables of each k to
-target/setup_cache_torch/, and a later run of the same k reads them instead
-of synthesising the circuit again.
+one polynomial), ``protostar`` and ``sangria`` (the average of
+``max(2, samples // 2)`` folds, then a ``# decider k=...: ... ms`` row for a
+decider that the verifier accepted); ``--pcs`` picks kzg, brakedown, gemini,
+zeromorph, ipa or hyrax for ``pcs`` and ``hyperplonk``, and every one but
+brakedown (which cannot combine commitments) for the folding systems; the
+rows of ``pcs`` go to target/bench_torch/pcs_<name>.  The multilinear KZG SRS
+is cached under target/srs_cache_torch/; ``--setup-only`` writes the
+zero-check tables of each k to target/setup_cache_torch/, and a later run of
+the same k reads them instead of synthesising the circuit again.  Each cache
+file's name holds a fingerprint of the sources that produce it, so that a
+change to them is never answered from a stale file.
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import hashlib
 import json
 import os
+import pathlib
 import pickle
 import random
 import signal
@@ -39,6 +46,37 @@ import time
 BENCH_DIR = "target/bench_torch"
 SRS_CACHE_DIR = "target/srs_cache_torch"
 SETUP_CACHE_DIR = "target/setup_cache_torch"
+
+# The package's sources whose code produces each cache.
+SRS_SOURCES = (
+    "pcs/kzg.py", "curves/msm.py", "curves/device.py", "curves/host.py",
+    "curves/pairing.py", "curves/specs.py", "fields/limb.py", "fields/host.py",
+    "fields/spec.py",
+)
+ZERO_CHECK_SOURCES = (
+    "benchmark.py", "models/circuits.py", "backend/circuit.py",
+    "backend/hyperplonk/preprocessor.py", "backend/hyperplonk/prover.py",
+    "piop/evaluator.py", "poly/multilinear.py", "utils/bh.py",
+    "utils/expression.py", "fields/limb.py", "fields/host.py", "fields/spec.py",
+)
+
+
+def source_fingerprint(sources) -> str:
+    """12 hex digits of a SHA-256 over the named sources of the package."""
+    root = pathlib.Path(__file__).resolve().parent
+    h = hashlib.sha256()
+    for rel in sources:
+        h.update(rel.encode() + b"\0" + (root / rel).read_bytes())
+    return h.hexdigest()[:12]
+
+
+def srs_cache_path(k: int, seed: int) -> str:
+    return f"{SRS_CACHE_DIR}/kzg_k{k}_seed{seed}_{source_fingerprint(SRS_SOURCES)}.npz"
+
+
+def setup_cache_path(circuit: str, k: int) -> str:
+    return (f"{SETUP_CACHE_DIR}/zero_check_{circuit}_k{k}_"
+            f"{source_fingerprint(ZERO_CHECK_SOURCES)}.pkl")
 
 
 def _sample_size(k: int) -> int:
@@ -108,7 +146,7 @@ def _main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument(
         "--system", default="hyperplonk",
-        choices=["hyperplonk", "zero_check", "pcs"],
+        choices=["hyperplonk", "zero_check", "pcs", "protostar", "sangria"],
     )
     ap.add_argument(
         "--circuit", default="vanilla_plonk",
@@ -144,6 +182,8 @@ def _main(argv=None) -> None:
     on_card = device.type == "cuda"
     if args.profile and not (on_card and args.system == "hyperplonk"):
         ap.error("--profile traces a hyperplonk prove on the card")
+    if args.system in FOLDING_SYSTEMS and args.pcs == "brakedown":
+        ap.error(f"--system {args.system} folds commitments; brakedown cannot combine them")
 
     def sync():
         if on_card:
@@ -177,6 +217,8 @@ def _main(argv=None) -> None:
 
     if args.system == "zero_check":
         _bench_zero_check(args, ks, device, sync, out_path)
+    elif args.system in FOLDING_SYSTEMS:
+        _bench_folding(args, ks, device, sync, out_path)
     elif args.system == "pcs":
         _bench_pcs(args, ks, device, sync, out_path)
     else:
@@ -196,6 +238,7 @@ def _circuit_fn(name: str):
 
 
 PCS_CHOICES = ("kzg", "brakedown", "gemini", "zeromorph", "ipa", "hyrax")
+FOLDING_SYSTEMS = ("protostar", "sangria")
 
 
 def _make_pcs(name: str, device):
@@ -304,7 +347,7 @@ def _bench_zero_check(args, ks, device, sync, out_path) -> None:
         # The setup (circuit synthesis and digit conversion in Python) takes
         # minutes at large k.  Everything cached is deterministic (the seeds
         # are fixed above) and independent of the device.
-        setup_cache = f"{SETUP_CACHE_DIR}/zero_check_{args.circuit}_k{k}.pkl"
+        setup_cache = setup_cache_path(args.circuit, k)
         if os.path.exists(setup_cache) and not args.setup_only:
             with open(setup_cache, "rb") as f:
                 blob = pickle.load(f)
@@ -441,6 +484,85 @@ def _bench_pcs(args, ks, device, sync, out_path) -> None:
             f"open {open_ms:.1f} ms (avg of {len(open_t)})",
             flush=True,
         )
+
+
+# ---------------------------------------------------------------------------
+# protostar / sangria: folds, then a decider
+# ---------------------------------------------------------------------------
+
+def _bench_folding(args, ks, device, sync, out_path) -> None:
+    """The reference's folding rows (plonkish_tpu/benchmark.py:611-690): the
+    average of max(2, samples // 2) folds (prove_accumulation_from_nark of
+    circuits with witness seeds 1000, 1001, ...), appended before the
+    decider runs, then the decider with the last NARK (witness seed 999),
+    checked by the verifier before its row is written.  The circuit info
+    comes with the first fold's circuit: it depends on the preprocess seed
+    (42) alone, so it is the one the reference draws with witness seed 4242,
+    without a synthesis of its own.  On the card an untimed fold of the
+    first circuit warms up first (the reference leaves out its first fold
+    on the jax backend)."""
+    from .accumulation.protostar import Protostar, Sangria
+    from .utils.transcript import Keccak256Transcript
+
+    scheme_cls = Protostar if args.system == "protostar" else Sangria
+    circuit_fn = _circuit_fn(args.circuit)
+    for k in ks:
+        _FAIL_NOTE["k"] = k
+        pcs = _make_pcs(args.pcs, device)
+        spec = pcs.field_spec
+        _prog(f"k={k}: synthesize circuit 0 ({args.circuit}) and its info")
+        circuit_info, circuit = circuit_fn(spec, k, random.Random(42), random.Random(1000))
+        scheme = scheme_cls(pcs)
+        _prog(f"k={k}: setup (SRS)")
+        param = _setup_cached(scheme, circuit_info, k, args.pcs, device)
+        _prog(f"k={k}: preprocess")
+        pp, vp = scheme.preprocess(param, circuit_info)
+        accumulator = scheme.init_accumulator(pp)
+        samples = max(2, (args.samples or _sample_size(k)) // 2)
+        warm_note = ""
+        if device.type == "cuda":
+            _prog(f"k={k}: warm-up fold")
+            t0 = time.perf_counter()
+            scheme.prove_accumulation_from_nark(
+                pp, scheme.init_accumulator(pp), circuit, Keccak256Transcript(spec)
+            )
+            sync()
+            warm_note = f", warm-up {(time.perf_counter() - t0) * 1e3:.0f} ms"
+        fold_times = []
+        for i in range(samples):
+            if i:
+                _prog(f"k={k}: synthesize circuit {i}")
+                _, circuit = circuit_fn(spec, k, random.Random(42), random.Random(1000 + i))
+            _prog(f"k={k}: fold {i}")
+            sync()
+            t0 = time.perf_counter()
+            scheme.prove_accumulation_from_nark(
+                pp, accumulator, circuit, Keccak256Transcript(spec)
+            )
+            sync()
+            fold_times.append(time.perf_counter() - t0)
+        avg_ms = sum(fold_times) / len(fold_times) * 1e3
+        # the fold row goes out before the decider runs: a failure there
+        # keeps the fold measurement
+        _append_series(out_path, f"{k}, {avg_ms:.3f}\n")
+        print(f"k={k} {args.system} fold avg {avg_ms:.1f} ms ({len(fold_times)} folds"
+              f"{warm_note})", flush=True)
+
+        _prog(f"k={k}: decider")
+        _, last_circuit = circuit_fn(spec, k, random.Random(42), random.Random(999))
+        acc_before = accumulator.instance.clone()
+        tr = Keccak256Transcript(spec)
+        sync()
+        t0 = time.perf_counter()
+        scheme.prove_decider_with_last_nark(pp, accumulator, last_circuit, tr)
+        sync()
+        decider_s = time.perf_counter() - t0
+        scheme.verify_decider_with_last_nark(
+            vp, acc_before, last_circuit.instances(),
+            Keccak256Transcript.from_proof(spec, tr.into_proof()),
+        )
+        _append_series(out_path, f"# decider k={k}: {decider_s * 1e3:.3f} ms\n")
+        print(f"k={k} {args.system} decider {decider_s * 1e3:.1f} ms (verified)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -582,7 +704,7 @@ def _profile_prove(out_dir, k, backend, pp, circuit, spec, device) -> None:
 
 def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
     """Disk-cache the multilinear KZG SRS across bench runs (the other PCS
-    set up afresh).
+    set up afresh); `backend` is a HyperPlonk or a folding scheme.
 
     setup is deterministic in (seed, size), `random.Random(seed)` drives the
     trapdoor draw, so caching is sound; the fixed-base MSM that builds the SRS
@@ -598,7 +720,7 @@ def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
 
     if pcs_name != "kzg":
         return backend.setup(circuit_info, random.Random(seed))
-    path = f"{SRS_CACHE_DIR}/kzg_k{k}_seed{seed}.npz"
+    path = srs_cache_path(k, seed)
     if os.path.exists(path):
         with np.load(path) as z:
             meta = json.loads(str(z["meta"]))

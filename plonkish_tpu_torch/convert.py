@@ -104,3 +104,83 @@ def kzg_params_from_reference(param, device="cpu"):
         g2=g2_from_reference(param.g2),
         ss=[g2_from_reference(s) for s in param.ss],
     )
+
+
+# ---------------------------------------------------------------------------
+# Protostar accumulators
+# ---------------------------------------------------------------------------
+
+def _comm_from_reference(comm):
+    """A reference commitment (a host point, a list of them, a Brakedown
+    commitment) -> the port's."""
+    if isinstance(comm, (list, tuple)):
+        return [_comm_from_reference(c) for c in comm]
+    if hasattr(comm, "root"):
+        from .pcs.brakedown import BrakedownCommitment
+
+        return BrakedownCommitment(root=comm.root)
+    from .curves import specs
+
+    curve = {c.name: c for c in (specs.BN254_G1, specs.GRUMPKIN_G1)}[comm.curve.name]
+    return g1_from_reference(comm, curve)
+
+
+def _comm_to_reference(comm):
+    """The port's commitment -> (x, y, is identity), a list of them, or the
+    32-byte root."""
+    if isinstance(comm, (list, tuple)):
+        return [_comm_to_reference(c) for c in comm]
+    if hasattr(comm, "root"):
+        return comm.root
+    if comm.is_identity():
+        return (0, 0, True)
+    return (int(comm.x), int(comm.y), False)
+
+
+def accumulator_from_reference(acc, device="cpu"):
+    """A reference ``ProtostarAccumulator`` -> the port's, its polynomials on
+    `device`: instances, commitments, challenges, u, the compressed e sum,
+    every witness polynomial and the e polynomial."""
+    from .accumulation.protostar import ProtostarAccumulator, ProtostarAccumulatorInstance
+    from .fields import spec as field_specs
+    from .poly.multilinear import MLPoly
+
+    inst = acc.instance
+    spec = {s.name: s for s in (field_specs.BN254_FR, field_specs.BN254_FQ)}[acc.e_poly.spec.name]
+
+    def fp(v):
+        return Fp(int(v), spec)
+
+    def poly(p):
+        return MLPoly(spec, digits_to_limbs(p.evals, device))
+
+    return ProtostarAccumulator(
+        instance=ProtostarAccumulatorInstance(
+            instances=[[fp(v) for v in col] for col in inst.instances],
+            witness_comms=[_comm_from_reference(c) for c in inst.witness_comms],
+            challenges=[fp(c) for c in inst.challenges],
+            u=fp(inst.u),
+            e_comm=_comm_from_reference(inst.e_comm),
+            compressed_e_sum=None if inst.compressed_e_sum is None else fp(inst.compressed_e_sum),
+        ),
+        witness_polys=[poly(p) for p in acc.witness_polys],
+        e_poly=poly(acc.e_poly),
+    )
+
+
+def accumulator_to_reference(acc) -> dict:
+    """The port's ``ProtostarAccumulator`` in the reference's terms, as plain
+    values: field elements as canonical ints, points as (x, y, is identity),
+    polynomials as the reference's ``uint32[n, 16]`` digits.  The keys are
+    the fields of the reference's accumulator and its instance."""
+    inst = acc.instance
+    return {
+        "instances": [[int(v) for v in col] for col in inst.instances],
+        "witness_comms": [_comm_to_reference(c) for c in inst.witness_comms],
+        "challenges": [int(c) for c in inst.challenges],
+        "u": int(inst.u),
+        "e_comm": _comm_to_reference(inst.e_comm),
+        "compressed_e_sum": None if inst.compressed_e_sum is None else int(inst.compressed_e_sum),
+        "witness_polys": [limbs_to_digits(p.evals) for p in acc.witness_polys],
+        "e_poly": limbs_to_digits(acc.e_poly.evals),
+    }

@@ -82,16 +82,19 @@ def _sqrt_candidates(spec: FieldSpec, a: torch.Tensor):
     return limb.pack(x), ok
 
 
-def hash_to_curve_batch(curve: CurveSpec, tag: bytes, n: int, device) -> torch.Tensor:
+def hash_to_curve_batch(curve: CurveSpec, tag: bytes, n: int, device,
+                        tries: int | None = None) -> torch.Tensor:
     """The points hash_to_curve(curve, tag, i) for i < n, as affine
     ``int32[n, 2, 8]`` on `device`: the same digests, tries and sign choice.
 
-    Every index takes `tries` consecutive counters in one batch of native
-    Keccak and one batch of square roots on the device; an index keeps its
-    first counter that gives a point, and the rare index with none takes the
-    next `tries` counters."""
+    Every index takes `tries` consecutive counters (by default 2 to 16, so
+    that a batch holds about 2^21 digests) in one batch of native Keccak and
+    one batch of square roots on the device; an index keeps its first
+    counter that gives a point, and an index with none takes the next
+    `tries` counters."""
     base = curve.base
-    tries = max(2, min(16, (1 << 21) // max(1, n)))
+    if tries is None:
+        tries = max(2, min(16, (1 << 21) // max(1, n)))
     x_out = limb.zeros((n,), device)
     y_out = limb.zeros((n,), device)
     todo = np.arange(n)

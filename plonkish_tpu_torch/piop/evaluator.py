@@ -3,7 +3,10 @@ plonkish_tpu/piop/evaluator.py).
 
 One memoised walk of the expression over whole-hypercube digit tensors:
 rotations become BH gathers, Identity a Montgomery iota, Lagrange(i) a
-one-hot.  Used for the lookup compression of the HyperPlonk prover.
+one-hot.  A node's digits are dropped after its last parent has read them,
+so only the walk's frontier is live (each value is int64 [16, 2^k], 128 MiB
+at k = 20).  Used for the lookup compression of the HyperPlonk prover and
+for Protostar's cross terms.
 """
 
 from __future__ import annotations
@@ -16,7 +19,36 @@ from ..fields import limb
 from ..fields.host import Fp
 from ..fields.spec import FieldSpec
 from ..utils.bh import BooleanHypercube
-from ..utils.expression import Expression, Identity, Lagrange
+from ..utils.expression import Expression, Identity, Lagrange, _children
+
+
+class _ReleasingMemo(dict):
+    """The walk's memo, deleting a node's value at its last read."""
+
+    def __init__(self, reads):
+        super().__init__()
+        self.reads = reads  # id(node) -> reads left
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        self.reads[key] -= 1
+        if self.reads[key] == 0:
+            del self[key]
+        return value
+
+
+def _reads(root: Expression) -> dict:
+    """id(node) -> how many times the walk reads its value: once for each
+    occurrence among its parents' children, and once the root's."""
+    reads = {id(root): 1}
+    seen, stack = {id(root)}, [root]
+    while stack:
+        for kid in _children(stack.pop()):
+            reads[id(kid)] = reads.get(id(kid), 0) + 1
+            if id(kid) not in seen:
+                seen.add(id(kid))
+                stack.append(kid)
+    return reads
 
 
 def identity_digits(spec: FieldSpec, num_vars: int, device) -> torch.Tensor:
@@ -75,5 +107,6 @@ def evaluate_on_hypercube(
         lambda a, b: limb.d_add(a, b, c),
         lambda a, b: limb.d_mul(a, b, c),
         lambda a, s: limb.d_mul(a, limb.d_const(spec, int(s), device), c),
+        _memo=_ReleasingMemo(_reads(expression)),
     )
     return limb.pack(out.expand(limb.D, n))

@@ -44,6 +44,10 @@ class MLPoly:
 
     # ---- constructors ----
     @classmethod
+    def zero(cls, spec: FieldSpec, num_vars: int, device) -> "MLPoly":
+        return cls(spec, limb.zeros((1 << num_vars,), device))
+
+    @classmethod
     def from_fps(cls, spec: FieldSpec, values: Sequence[Fp], device) -> "MLPoly":
         return cls(spec, limb.from_canonical_ints(spec, [v.v for v in values], device))
 

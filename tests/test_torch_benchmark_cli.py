@@ -44,7 +44,8 @@ def test_cli_hyperplonk(circuit, capsys):
     with open("target/bench_torch/hyperplonk.breakdown.json") as f:
         bars = json.load(f)
     assert set(bars) == {"5"} and bars["5"]["sum_check"] > 0 and bars["5"]["pcs"] > 0
-    assert os.path.exists("target/srs_cache_torch/kzg_k5_seed0.npz")
+    assert os.path.exists(benchmark.srs_cache_path(5, 0))
+    assert benchmark.srs_cache_path(5, 0).startswith("target/srs_cache_torch/kzg_k5_seed0_")
     out = capsys.readouterr().out
     assert "k=5 pcs=kzg device=cpu: prove" in out and "cost breakdown" in out
     # a second run reads the SRS back from the cache and appends a row
@@ -73,7 +74,7 @@ def test_cli_zero_check_setup_only_then_cached(capsys):
     benchmark.main(
         ["--device", "cpu", "--system", "zero_check", "--k", "5..6", "--setup-only"]
     )
-    assert os.path.exists("target/setup_cache_torch/zero_check_vanilla_plonk_k5.pkl")
+    assert os.path.exists(benchmark.setup_cache_path("vanilla_plonk", 5))
     assert not os.path.exists("target/bench_torch/zero_check")  # nothing proved
     assert "setup cached, skipping prove" in capsys.readouterr().out
     benchmark.main(
@@ -109,8 +110,8 @@ def test_cli_plotter():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--system", "sangria"], ["--system", "univariate_plonk"], ["--circuit", "sha256"],
-    ["--system", "protostar"], ["--backend", "jax"], ["--mesh", "1,2"],
+    ["--circuit", "aggregation"], ["--system", "univariate_plonk"], ["--circuit", "sha256"],
+    ["--system", "protostar", "--circuit", "sha256"], ["--backend", "jax"], ["--mesh", "1,2"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -119,6 +120,44 @@ def test_cli_refuses_what_is_not_ported(argv, capsys):
     err = capsys.readouterr().err
     assert "invalid choice" in err or "unrecognized arguments" in err
     assert not os.path.exists("target/bench_torch/hyperplonk")
+
+
+@pytest.mark.parametrize("system", ["protostar", "sangria"])
+def test_cli_folding(system, capsys):
+    """Two folds at k = 5 (the fold row), then a decider the verifier
+    accepted (the `# decider` row), as the reference's harness writes them;
+    brakedown, which cannot combine commitments, is refused."""
+    benchmark.main(["--device", "cpu", "--system", system, "--k", "5..6", "--samples", "1"])
+    notes, rows = _rows(f"target/bench_torch/{system}")
+    assert len(notes) == 2 and notes[0].startswith("# run ")
+    assert notes[1].startswith("# decider k=5: ") and float(notes[1].split()[3]) > 0
+    assert len(rows) == 1 and int(rows[0].split(",")[0]) == 5 and float(rows[0].split(",")[1]) > 0
+    out = capsys.readouterr().out
+    assert f"k=5 {system} fold avg" in out and "(2 folds)" in out and "(verified)" in out
+    with pytest.raises(SystemExit) as e:
+        benchmark.main(["--device", "cpu", "--system", system, "--pcs", "brakedown",
+                        "--k", "5..6"])
+    assert e.value.code == 2
+
+
+def test_cache_names_hold_the_sources_fingerprint(monkeypatch, capsys):
+    """A change to the sources that produce a cache changes its name, so the
+    next run sets up afresh instead of reading the stale file."""
+    argv = ["--device", "cpu", "--system", "zero_check", "--k", "5..6"]
+    benchmark.main([*argv, "--setup-only"])
+    first = benchmark.setup_cache_path("vanilla_plonk", 5)
+    assert os.path.exists(first)
+    srs = benchmark.srs_cache_path(5, 0)
+    real = benchmark.source_fingerprint
+    monkeypatch.setattr(benchmark, "source_fingerprint", lambda sources: "0" + real(sources)[1:])
+    assert benchmark.setup_cache_path("vanilla_plonk", 5) != first
+    assert benchmark.srs_cache_path(5, 0) != srs
+    capsys.readouterr()
+    benchmark.main([*argv, "--samples", "1"])
+    assert "setup loaded from" not in capsys.readouterr().out
+    monkeypatch.setattr(benchmark, "source_fingerprint", real)
+    benchmark.main([*argv, "--samples", "1"])
+    assert "setup loaded from" in capsys.readouterr().out
 
 
 def test_cli_defaults_to_the_card():

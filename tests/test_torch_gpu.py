@@ -217,3 +217,59 @@ def test_ipa_base_fold_matches_plain(cuda, xi):
     xi %= C.scalar.p
     assert torch.equal(kipa.base_fold_cuda(C, left, right, xi),
                        kipa.base_fold_plain(C, left, right, xi))
+
+
+@pytest.mark.gpu
+def test_golden_protostar_decider_k3_on_the_card(cuda):
+    """Two Protostar folds and the decider at k = 3 on the card (as
+    tests/test_golden_proofs.py builds the fixture): the proof is
+    tests/golden/protostar_kzg_decider_k3.bin and K1-K4 each launched."""
+    from plonkish_tpu_torch.accumulation.protostar import Protostar
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES, reset_launches
+    from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+    from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    def make(seed):
+        return rand_vanilla_plonk_circuit(BN254_FR, 3, random.Random(42), random.Random(seed))
+
+    ci, _ = make(0)
+    circuits = [make(100 + i)[1] for i in range(3)]
+    scheme = Protostar(MultilinearKzg())
+    pp, vp = scheme.preprocess(scheme.setup(ci, random.Random(0)), ci)
+    acc = scheme.init_accumulator(pp)
+    assert acc.e_poly.device.type == "cuda"
+    reset_launches()
+    for circuit in circuits[:2]:
+        scheme.prove_accumulation_from_nark(pp, acc, circuit, Keccak256Transcript(BN254_FR))
+    before = acc.instance.clone()
+    tr = Keccak256Transcript(BN254_FR)
+    scheme.prove_decider_with_last_nark(pp, acc, circuits[2], tr)
+    prover_kernels = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+    assert all(LAUNCHES[name] > 0 for name in prover_kernels), LAUNCHES
+    proof = tr.into_proof()
+    assert proof == (GOLDEN / "protostar_kzg_decider_k3.bin").read_bytes()
+    scheme.verify_decider_with_last_nark(vp, before, circuits[2].instances(),
+                                         Keccak256Transcript.from_proof(BN254_FR, proof))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system,circuit,field", [
+    ("protostar", "vanilla", "fr"), ("protostar", "lookup", "fr"),
+    ("sangria", "vanilla", "fr"), ("sangria", "lookup", "fr"), ("protostar", "vanilla", "fq"),
+])
+def test_decider_round_kernels_match_plain(cuda, system, circuit, field):
+    """K3 over the decider's expression of each folding scheme, on random
+    tables at 2^7 pairs, against its plain version."""
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.piop import sum_check as sc
+    from test_torch_protostar import decider_state
+
+    spec = BN254_FR if field == "fr" else BN254_FQ
+    state, prover = decider_state(spec, system, circuit, 8, cuda, 9)
+    ids = sc.identity_params(spec, 0, state.identity_offset, cuda)
+    args = (state.stacked, prover.instrs, prover.consts, prover.tape.num_regs,
+            prover.tape.out_reg, state.degree, ids)
+    assert torch.equal(ksc.sumcheck_round_cuda(spec, *args), ksc.sumcheck_round_plain(spec, *args))

@@ -32,12 +32,50 @@ print("LOADED", bad)
 """
 
 
-def test_prove_loads_no_jax():
+FOLD_PROBE = r"""
+import random, sys
+from plonkish_tpu_torch.accumulation.protostar import Protostar
+from plonkish_tpu_torch.fields.spec import BN254_FR
+from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+def make(seed):
+    return rand_vanilla_plonk_circuit(BN254_FR, 3, random.Random(42), random.Random(seed))
+
+ci, _ = make(0)
+circuits = [make(100 + i)[1] for i in range(3)]
+scheme = Protostar(MultilinearKzg(device="cpu"))
+pp, vp = scheme.preprocess(scheme.setup(ci, random.Random(0)), ci)
+acc = scheme.init_accumulator(pp)
+for circuit in circuits[:2]:
+    scheme.prove_accumulation_from_nark(pp, acc, circuit, Keccak256Transcript(BN254_FR))
+before = acc.instance.clone()
+tr = Keccak256Transcript(BN254_FR)
+scheme.prove_decider_with_last_nark(pp, acc, circuits[2], tr)
+scheme.verify_decider_with_last_nark(vp, before, circuits[2].instances(),
+                                     Keccak256Transcript.from_proof(BN254_FR, tr.into_proof()))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "plonkish_tpu" or m.startswith("plonkish_tpu."))
+print("LOADED", bad)
+"""
+
+
+def _loads_no_jax(probe):
     out = subprocess.run(
-        [sys.executable, "-c", PROBE], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        [sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=600,
     )
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_prove_loads_no_jax():
+    _loads_no_jax(PROBE)
+
+
+def test_fold_and_decide_loads_no_jax():
+    """Two Protostar folds and a decider at k = 3, verified."""
+    _loads_no_jax(FOLD_PROBE)
 
 
 def _imports(path):

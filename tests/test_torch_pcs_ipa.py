@@ -11,8 +11,9 @@ from test_torch_pcs_gemini import check_golden, check_harness, check_round_trip
 
 
 def test_basis_equals_reference():
-    """The batched hash-to-curve of the setup gives the reference's points
-    (first tries taken together, retries as the reference makes them)."""
+    """The batched hash-to-curve of the setup gives the reference's points.
+    At these sizes every index finds its point within the batch's first
+    tries; test_hash_to_curve_batch_retries covers the retries."""
     from plonkish_tpu.curves.device import to_affine_host
     from plonkish_tpu.pcs.ipa import MultilinearIpa as RefIpa
     from plonkish_tpu_torch.curves import device as cdev
@@ -29,6 +30,24 @@ def test_basis_equals_reference():
     tail = ipa.hash_to_curve_batch(GRUMPKIN_G1, ipa.SETUP_TAG, 3, torch.device("cpu"))
     assert cdev.affine_to_host(GRUMPKIN_G1, tail) == [
         ipa.hash_to_curve(GRUMPKIN_G1, ipa.SETUP_TAG, i) for i in range(3)]
+
+
+@pytest.mark.parametrize("tries", [1, 2])
+def test_hash_to_curve_batch_retries(tries):
+    """With one or two counters a batch, 128 or 67 of the 256 indices find
+    no point in the first batch and take the retry branch: the points still
+    equal the reference's hash_to_curve index by index."""
+    from plonkish_tpu.curves.specs import GRUMPKIN_G1 as REF_GRUMPKIN
+    from plonkish_tpu.pcs.ipa import hash_to_curve as ref_hash_to_curve
+    from plonkish_tpu_torch.curves import device as cdev
+    from plonkish_tpu_torch.curves.specs import GRUMPKIN_G1
+    from plonkish_tpu_torch.pcs import ipa
+
+    n = 256
+    got = ipa.hash_to_curve_batch(GRUMPKIN_G1, ipa.SETUP_TAG, n, torch.device("cpu"), tries=tries)
+    want = [ref_hash_to_curve(REF_GRUMPKIN, ipa.SETUP_TAG, i) for i in range(n)]
+    assert [(int(p.x), int(p.y)) for p in cdev.affine_to_host(GRUMPKIN_G1, got)] == [
+        (int(p.x), int(p.y)) for p in want]
 
 
 def test_golden_ipa_k5():

@@ -114,3 +114,32 @@ def test_zero_check_through_generated_twin(name):
         rstate.next_round(RefFp(5, REF_FR), RefFp(ch, REF_FR))
     assert [int(v) for v in state.into_evals()] == [int(v) for v in rstate.into_evals()]
 
+
+
+@pytest.mark.parametrize("system,circuit,field", [
+    ("protostar", "vanilla", "fr"), ("protostar", "lookup", "fr"),
+    ("sangria", "vanilla", "fr"), ("sangria", "lookup", "fr"), ("protostar", "vanilla", "fq"),
+])
+def test_decider_tapes_through_generated_twin(system, circuit, field):
+    """The folding deciders' tapes (over Fr, and Protostar's over Fq, the
+    field of the IPA path) fit the generated kernel: every round of a k = 4
+    decider sum-check through the source built with g++ equals the plain
+    version, with the plain fold between rounds."""
+    from plonkish_tpu_torch.fields.spec import BN254_FQ
+    from test_torch_protostar import decider_state
+
+    spec = BN254_FR if field == "fr" else BN254_FQ
+    num_vars = 4
+    state, prover = decider_state(spec, system, circuit, num_vars, "cpu", 11)
+    try:
+        kern = sumcheck_gen.twin(*_tape_args(state, prover), spec=spec)
+    except FileNotFoundError as e:
+        pytest.skip(f"no host C++ compiler: {e}")
+    t = prover.tape
+    for round_ in range(num_vars):
+        ids = sc.identity_params(spec, state.round, state.identity_offset, "cpu")
+        got = ksc.round_launch(kern, None, state.stacked, prover.consts, state.degree, ids)
+        want = ksc.sumcheck_round_plain(spec, state.stacked, prover.instrs, prover.consts,
+                                        t.num_regs, t.out_reg, state.degree, ids)
+        assert torch.equal(got, want), f"round {round_}"
+        state.next_round(Fp(5, spec), Fp(1000 + round_, spec))

@@ -11,8 +11,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    them, the sum-check round kernels K3 that kernels/sumcheck_gen.py
    generates for the expressions this script runs (over Fr: vanilla PLONK,
    vanilla PLONK with lookups, a degree-1 single leaf, a wide degree-9
-   expression of 41 tables, and the deciders of Protostar and Sangria over
-   each of the two circuits; over Fq: vanilla PLONK, vanilla PLONK with
+   expression of 41 tables, the zero-checks of the harness's aggregation
+   circuit and of sha256 at each k phase 10 runs it at (its tape depends on
+   k; 185 registers, kept in a local array), and the deciders of Protostar and Sangria over each
+   of the two vanilla circuits; over Fq: vanilla PLONK, vanilla PLONK with
    lookups and Protostar's vanilla decider, the IPA path's), with each one's
    ptxas line and build seconds; the vanilla and lookup kernels must have a
    0-byte stack frame and no spills; print the card;
@@ -64,7 +66,21 @@ Phases, each printed on its own line; any failure exits non-zero:
    decider's ms, the span breakdown, the peak device memory and the launches
    of K1-K4 in that region (each must launch, and no K3 may be built there);
    the decider verified and a flipped byte rejected; then the harness's
-   sangria system at k = 20 in process, its fold and decider rows read back.
+   sangria system at k = 20 in process, its fold and decider rows read back;
+9. univariate (halo2-style) PLONK over BN254 with the univariate KZG on the
+   circuit of phase 4 at k = 20: setup (4 * 2^20 powers), preprocess with its
+   spans, a warm-up prove, a timed prove with its spans, peak device memory
+   and launches (K1 and K2 must launch, K3 and K4 must not), verify, and a
+   flipped byte rejected; one forward NTT of 2^22 points timed; then the
+   harness's univariate_plonk row at k = 16;
+10. HyperPlonk over BN254 with multilinear KZG on the harness's benchmark
+   circuits: the aggregation ladder at k = 20 (the reference's default
+   workload; phase 4's SRS) and sha256 at k = 16 (468 blocks: its Python
+   synthesis takes about 30 ms a block, so k = 20's 7,489 blocks would take
+   about 220 s before any prove), each synthesised, preprocessed, proved
+   (warm-up, then timed with spans, peak and K1-K4 launches, no K3 built),
+   verified and a flipped byte rejected; then the harness's hyperplonk rows
+   of aggregation at k = 18 and sha256 at k = 14.
 
 The last three lines of standard output are the kernels JSON line, the card
 as nvidia-smi reports it, and the result line.  The script imports no JAX
@@ -92,6 +108,17 @@ DECIDERS = (
     ("sangria_lookup", "sangria", "rand_vanilla_plonk_with_lookup_circuit"),
 )
 IPA_KERNELS = PROVER_KERNELS + ("ipa_base_fold",)
+K_SHA256 = 16  # phase 10's sha256 circuit: 468 blocks (k = 20 would be 7,489)
+K_UNIVARIATE_ROW, K_AGGREGATION_ROW, K_SHA256_ROW = 16, 18, 14  # harness rows of 9 and 10
+# phase 10's zero-check tapes: (circuit, k).  The sha256 expression holds the
+# permutation's identity offsets i * 2^k, and where one equals a bit weight
+# 2^j of the gates the two constants share a row of the tape's constant
+# table, so its structure, and its kernel, depends on k.
+BENCH_TAPES = {
+    "aggregation": ("aggregation", K_FULL),
+    f"sha256_k{K_SHA256}": ("sha256", K_SHA256),
+    f"sha256_k{K_SHA256_ROW}": ("sha256", K_SHA256_ROW),
+}
 NEW_PCS = ("gemini", "zeromorph", "hyrax", "brakedown", "ipa")
 
 
@@ -139,14 +166,28 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    def at(phase):
+        log(f"[phase {phase}] starts {time.time() - t_start:.1f}s into the script")
+
+    at(2)
     phase2_kernels(torch)
+    at(3)
     phase3_golden(torch, here)
+    at(4)
     main_path, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
+    at(5)
     kernels = phase5_timing(torch, shapes, main_path)
+    at(6)
     harness_path = phase6_harness(K_FULL, LAUNCHES, reset_launches)
+    at(7)
     ipa_path = phase7_ipa(torch, K_FULL, LAUNCHES, reset_launches)
     phase7_harness(K_PCS_ROWS, LAUNCHES, reset_launches)
+    at(8)
     phase8_folding(torch, K_FULL, LAUNCHES, reset_launches, shapes)
+    at(9)
+    phase9_univariate(torch, K_FULL, LAUNCHES, reset_launches, shapes)
+    at(10)
+    phase10_circuits(torch, K_FULL, LAUNCHES, reset_launches, shapes)
     for row in kernels:  # each kernel's launches on the path that runs it
         if row["name"] == "mont_mul_chain":
             row["launches"] = harness_path["mont_mul_chain"]
@@ -218,8 +259,9 @@ def affine_equal(torch, curve, a, b):
 def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_expression",
                      spec=None):
     """A zero-check prover state of a models.circuits expression (vanilla
-    PLONK unless named) over `spec` (BN254 Fr unless given) with random
-    tables of the main path's count and size."""
+    PLONK unless named) or of a harness circuit's (BENCH_TAPES) over
+    `spec` (BN254 Fr unless given) with random tables of the main path's
+    count and size."""
     from plonkish_tpu_torch.fields.host import Fp
     from plonkish_tpu_torch.fields.spec import BN254_FR
     from plonkish_tpu_torch.fields import limb
@@ -230,7 +272,8 @@ def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_ex
     from plonkish_tpu_torch.poly.multilinear import MLPoly
 
     spec = spec or BN254_FR
-    expr = getattr(circuits, name)(spec, num_vars)
+    expr = (benchmark_expression(name) if name in BENCH_TAPES
+            else getattr(circuits, name)(spec, num_vars))
     num_polys = 1 + max(q.poly for q in expr.used_query())
     rng = random.Random(7)
     polys = [
@@ -241,6 +284,24 @@ def zero_check_state(torch, num_vars, gen, device="cuda", name="vanilla_plonk_ex
     y = [Fp(rng.randrange(spec.p), spec) for _ in range(num_vars)]
     state = ProverState(spec, num_vars, Fp.zero(spec), VirtualPolynomial(expr, polys, challenges, [y]))
     return state, EvaluationsProver(state)
+
+
+def benchmark_expression(name):
+    """The zero-check expression (compose) of a tape of BENCH_TAPES over BN254
+    Fr.  It depends on the circuit's structure and k, not on the witness: one
+    sha256 block at the tape's k gives it, and the aggregation ladder's is
+    the same at every k from 2 on (its constants 2 and 3 meet no offset)."""
+    from plonkish_tpu_torch.backend.hyperplonk.preprocessor import compose
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.models.aggregation import rand_aggregation_circuit
+    from plonkish_tpu_torch.models.sha256 import sha256_circuit
+
+    circuit, k = BENCH_TAPES[name]
+    if circuit == "aggregation":
+        info, _ = rand_aggregation_circuit(BN254_FR, 4, random.Random(1), random.Random(2))
+    else:
+        info, _, _ = sha256_circuit(b"abc", k=k)
+    return compose(info)[1]
 
 
 def decider_state(torch, num_vars, gen, device, scheme, circuit, spec):
@@ -279,9 +340,10 @@ def decider_state(torch, num_vars, gen, device, scheme, circuit, spec):
 def k3_cases(torch, num_vars, gen, device="cuda"):
     """K3's arguments (state, instrs, consts, num_regs, out_reg, degree) with
     the field, keyed (field name, expression), at 2^(num_vars - 1) pairs: the
-    four Fr expressions, the four folding deciders over Fr, and the vanilla
-    and lookup ones and Protostar's vanilla decider over Fq; with them the
-    vanilla prover state over Fr."""
+    four Fr expressions, the zero-checks of the aggregation circuit and of
+    sha256 at the two k it runs at, the four folding deciders over Fr, and
+    the vanilla and lookup ones and Protostar's vanilla decider over Fq;
+    with them the vanilla prover state over Fr."""
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
     from plonkish_tpu_torch.kernels import sumcheck_gen
@@ -302,6 +364,12 @@ def k3_cases(torch, num_vars, gen, device="cuda"):
                                         spec)
             if (spec, name) == (BN254_FR, "vanilla"):
                 vanilla = (state, prover)
+    for name in BENCH_TAPES:
+        state, prover = zero_check_state(torch, num_vars, gen, device, name)
+        cases[(BN254_FR.name, name)] = (state.stacked, prover.instrs, prover.consts,
+                                        prover.tape.num_regs, prover.tape.out_reg, state.degree,
+                                        BN254_FR)
+        del state, prover
     for spec, deciders in ((BN254_FR, DECIDERS), (BN254_FQ, DECIDERS[:1])):
         for name, scheme, circuit in deciders:
             state, prover = decider_state(torch, num_vars, gen, device, scheme, circuit, spec)
@@ -601,11 +669,8 @@ def phase3_golden(torch, here):
 def phase4_full(torch, k, launches, reset_launches):
     from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
     from plonkish_tpu_torch.fields.spec import BN254_FR
-    from plonkish_tpu_torch.kernels import sumcheck_gen
     from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
     from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
-    from plonkish_tpu_torch.utils import timer
-    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
 
     times = {}
     t0 = time.time()
@@ -624,58 +689,11 @@ def phase4_full(torch, k, launches, reset_launches):
     log(f"[k={k}] circuit {times['circuit']:.2f}s, setup {times['setup']:.2f}s, "
         f"preprocess {times['preprocess']:.2f}s")
 
-    t0 = time.time()
-    kernels_before = len(sumcheck_gen.BUILDS)
-    backend.prove(pp, circuit, Keccak256Transcript(BN254_FR))
-    torch.cuda.synchronize()
-    kernels_warm = len(sumcheck_gen.BUILDS)
-    log(f"[k={k}] warm-up prove {time.time() - t0:.2f}s; K3 kernels loaded in this process "
-        f"{kernels_before} before it, {kernels_warm} after it")
-
-    timer.set_sync(torch.cuda.synchronize)
-    timer.set_enabled(True)
-    timer.reset_trace()
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    tr = Keccak256Transcript(BN254_FR)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    backend.prove(pp, circuit, tr)
-    torch.cuda.synchronize()
-    times["prove"] = time.time() - t0
-    main_path = dict(launches)
-    timer.set_enabled(False)
-    peak = torch.cuda.max_memory_allocated()
-    proof = tr.into_proof()
-    log(f"[k={k}] prove {times['prove']:.3f}s, {len(proof)} bytes, "
-        f"peak device memory {peak / 2**30:.2f} GiB")
-    spans = [(n, d, s) for n, d, s in timer.trace() if d <= 1]
-    for name, depth, sec in spans:
-        log(f"[k={k}] span {'  ' * depth}{name}: {sec * 1e3:.1f} ms")
-    top = sum(s for _, d, s in spans if d == 0)
-    log(f"[k={k}] outside top-level spans: {(times['prove'] - top) * 1e3:.1f} ms")
-    log(f"[k={k}] kernel launches in the timed prove: {json.dumps(main_path)}; K3 kernels "
-        f"built or loaded in it: {len(sumcheck_gen.BUILDS) - kernels_warm}")
-    if len(sumcheck_gen.BUILDS) != kernels_warm:
-        fail("the timed prove built a K3 kernel: its challenges changed the tape's structure")
-    for name in PROVER_KERNELS:
-        if main_path[name] <= 0:
-            fail(f"kernel {name} was not launched in the k={k} prove")
-
-    t0 = time.time()
-    backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(BN254_FR, proof))
-    times["verify"] = time.time() - t0
-    bad = bytearray(proof)
-    bad[len(bad) // 2] ^= 1
-    try:
-        backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(BN254_FR, bytes(bad)))
-    except (ValueError, EOFError):
-        pass
-    else:
-        fail("a proof with a flipped byte was accepted")
-    log(f"[k={k}] verify {times['verify']:.2f}s; flipped byte rejected")
+    times["prove"], main_path = prove_and_check(
+        torch, f"k={k}", backend, pp, vp, circuit, BN254_FR, launches, reset_launches,
+        must=PROVER_KERNELS)
     log(f"[k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
-    return main_path, {"pp": pp, "k": k, "circuit": (ci, circuit)}
+    return main_path, {"pp": pp, "k": k, "circuit": (ci, circuit), "param": param}
 
 
 # ------------------------------------------------------ 5 kernel timing
@@ -1001,11 +1019,8 @@ def phase7_ipa(torch, k, launches, reset_launches):
     fold."""
     from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
     from plonkish_tpu_torch.fields.spec import BN254_FQ
-    from plonkish_tpu_torch.kernels import sumcheck_gen
     from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
     from plonkish_tpu_torch.pcs.ipa import MultilinearIpa
-    from plonkish_tpu_torch.utils import timer
-    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
 
     spec = BN254_FQ
     times = {}
@@ -1025,56 +1040,9 @@ def phase7_ipa(torch, k, launches, reset_launches):
     log(f"[ipa k={k}] circuit {times['circuit']:.2f}s, setup {times['setup']:.2f}s (the "
         f"basis kept from phase 5), preprocess {times['preprocess']:.2f}s")
 
-    t0 = time.time()
-    kernels_before = len(sumcheck_gen.BUILDS)
-    backend.prove(pp, circuit, Keccak256Transcript(spec))
-    torch.cuda.synchronize()
-    kernels_warm = len(sumcheck_gen.BUILDS)
-    log(f"[ipa k={k}] warm-up prove {time.time() - t0:.2f}s; K3 kernels loaded in this process "
-        f"{kernels_before} before it, {kernels_warm} after it")
-
-    timer.set_sync(torch.cuda.synchronize)
-    timer.set_enabled(True)
-    timer.reset_trace()
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    tr = Keccak256Transcript(spec)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    backend.prove(pp, circuit, tr)
-    torch.cuda.synchronize()
-    times["prove"] = time.time() - t0
-    ipa_path = dict(launches)
-    timer.set_enabled(False)
-    peak = torch.cuda.max_memory_allocated()
-    proof = tr.into_proof()
-    log(f"[ipa k={k}] prove {times['prove']:.3f}s, {len(proof)} bytes, "
-        f"peak device memory {peak / 2**30:.2f} GiB")
-    spans = [(n, d, s) for n, d, s in timer.trace() if d <= 1]
-    for name, depth, sec in spans:
-        log(f"[ipa k={k}] span {'  ' * depth}{name}: {sec * 1e3:.1f} ms")
-    top = sum(s for _, d, s in spans if d == 0)
-    log(f"[ipa k={k}] outside top-level spans: {(times['prove'] - top) * 1e3:.1f} ms")
-    log(f"[ipa k={k}] kernel launches in the timed prove: {json.dumps(ipa_path)}; K3 kernels "
-        f"built or loaded in it: {len(sumcheck_gen.BUILDS) - kernels_warm}")
-    if len(sumcheck_gen.BUILDS) != kernels_warm:
-        fail("the timed IPA prove built a K3 kernel")
-    for name in IPA_KERNELS:
-        if ipa_path[name] <= 0:
-            fail(f"kernel {name} was not launched in the k={k} IPA prove")
-
-    t0 = time.time()
-    backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(spec, proof))
-    times["verify"] = time.time() - t0
-    bad = bytearray(proof)
-    bad[len(bad) // 2] ^= 1
-    try:
-        backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(spec, bytes(bad)))
-    except (ValueError, EOFError):
-        pass
-    else:
-        fail("an IPA proof with a flipped byte was accepted")
-    log(f"[ipa k={k}] verify {times['verify']:.2f}s; flipped byte rejected")
+    times["prove"], ipa_path = prove_and_check(
+        torch, f"ipa k={k}", backend, pp, vp, circuit, spec, launches, reset_launches,
+        must=IPA_KERNELS)
     log(f"[ipa k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
     return ipa_path
 
@@ -1082,29 +1050,9 @@ def phase7_ipa(torch, k, launches, reset_launches):
 def phase7_harness(k, launches, reset_launches):
     """The harness's pcs system at k for the five PCS besides KZG, in
     process, one timed sample each after the harness's own warm-up."""
-    from plonkish_tpu_torch import benchmark
-
     for pcs in NEW_PCS:
-        name = f"pcs_{pcs}"
-        path = os.path.join(benchmark.BENCH_DIR, name)
-        size = os.path.getsize(path) if os.path.exists(path) else 0
-        reset_launches()
-        t0 = time.time()
-        benchmark.main(["--system", "pcs", "--pcs", pcs, "--k", f"{k}..{k + 1}",
-                        "--samples", "1"])
-        log(f"[harness] {name} k={k}: {time.time() - t0:.1f}s; kernel launches "
-            f"{json.dumps(dict(launches))}")
-        with open(path) as fh:
-            fh.seek(size)
-            added = fh.read().splitlines()
-        if any(line.startswith("# FAILED") for line in added):
-            fail(f"the harness wrote a FAILED row to {name}: {added}")
-        rows = [line.split(",") for line in added if not line.startswith("#")]
-        if len(rows) != 1 or len(rows[0]) != 3 or int(rows[0][0]) != k:
-            fail(f"the harness row of {name} at k={k} is missing: {added}")
-        if not all(float(v) > 0 for v in rows[0][1:]):
-            fail(f"the harness row of {name} holds no time: {added}")
-        log(f"[harness] {name} row: {','.join(rows[0])} ms")
+        harness_row(["--system", "pcs", "--pcs", pcs], f"pcs_{pcs}", k, 3, launches,
+                    reset_launches)
 
 
 # ------------------------------------------------------ 8 folding at full size
@@ -1124,7 +1072,7 @@ def phase8_folding(torch, k, launches, reset_launches, shapes):
 
     spec = BN254_FR
     times = {}
-    ci, first = shapes.pop("circuit")
+    ci, first = shapes["circuit"]
     t0 = time.time()
     # the same structure (preprocess seed 1) with another witness; the last
     # NARK is phase 4's circuit again (a synthesis at k = 20 takes 30 s)
@@ -1226,6 +1174,197 @@ def phase8_folding(torch, k, launches, reset_launches, shapes):
     if len(decider) != 1:
         fail(f"the harness's decider row of {name} at k={k} is missing: {added}")
     log(f"[harness] {name} rows: fold {','.join(rows[0])} ms; {decider[0][2:]}")
+
+
+# ------------------------------------------------------ shared by 9 and 10
+
+def prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_launches,
+                    must, must_not=()):
+    """A warm-up prove, then a timed prove with its spans, peak device memory
+    and kernel launches (each of `must` launched, none of `must_not`, no K3
+    built or loaded in the timed prove), the verifier accepting and a flipped
+    byte rejected.  Returns (prove seconds, launches)."""
+    from plonkish_tpu_torch.kernels import sumcheck_gen
+    from plonkish_tpu_torch.utils import timer
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    t0 = time.time()
+    kernels_before = len(sumcheck_gen.BUILDS)
+    backend.prove(pp, circuit, Keccak256Transcript(spec))
+    torch.cuda.synchronize()
+    kernels_warm = len(sumcheck_gen.BUILDS)
+    log(f"[{tag}] warm-up prove {time.time() - t0:.2f}s; K3 kernels loaded in this process "
+        f"{kernels_before} before it, {kernels_warm} after it")
+
+    timer.set_sync(torch.cuda.synchronize)
+    timer.set_enabled(True)
+    timer.reset_trace()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Keccak256Transcript(spec)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    backend.prove(pp, circuit, tr)
+    torch.cuda.synchronize()
+    prove_s = time.time() - t0
+    path = dict(launches)
+    timer.set_enabled(False)
+    peak = torch.cuda.max_memory_allocated()
+    proof = tr.into_proof()
+    log(f"[{tag}] prove {prove_s:.3f}s, {len(proof)} bytes, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    spans = [(n, d, sec) for n, d, sec in timer.trace() if d <= 2]
+    for name, depth, sec in spans:
+        log(f"[{tag}] span {'  ' * depth}{name}: {sec * 1e3:.1f} ms")
+    top = sum(sec for _, d, sec in spans if d == 0)
+    log(f"[{tag}] outside top-level spans: {(prove_s - top) * 1e3:.1f} ms")
+    log(f"[{tag}] kernel launches in the timed prove: {json.dumps(path)}; K3 kernels built or "
+        f"loaded in it: {len(sumcheck_gen.BUILDS) - kernels_warm}")
+    if len(sumcheck_gen.BUILDS) != kernels_warm:
+        fail(f"[{tag}] the timed prove built a K3 kernel")
+    for name in must:
+        if path[name] <= 0:
+            fail(f"[{tag}] kernel {name} was not launched in the timed prove")
+    for name in must_not:
+        if path[name] != 0:
+            fail(f"[{tag}] kernel {name} was launched where the path has none")
+
+    t0 = time.time()
+    backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(spec, proof))
+    verify_s = time.time() - t0
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(spec, bytes(bad)))
+    except (ValueError, EOFError):
+        pass
+    else:
+        fail(f"[{tag}] a proof with a flipped byte was accepted")
+    log(f"[{tag}] verify {verify_s:.2f}s; flipped byte rejected")
+    return prove_s, path
+
+
+def harness_row(argv, name, k, columns, launches, reset_launches):
+    """benchmark.main(argv) in process at k, one sample after the harness's
+    own warm-up; the row it appended to target/bench_torch/<name> is read
+    back (no FAILED row, `columns` positive values at k) and returned."""
+    from plonkish_tpu_torch import benchmark
+
+    path = os.path.join(benchmark.BENCH_DIR, name)
+    size = os.path.getsize(path) if os.path.exists(path) else 0
+    reset_launches()
+    t0 = time.time()
+    benchmark.main([*argv, "--k", f"{k}..{k + 1}", "--samples", "1"])
+    log(f"[harness] {name} {' '.join(argv)} k={k}: {time.time() - t0:.1f}s; kernel launches "
+        f"{json.dumps(dict(launches))}")
+    with open(path) as fh:
+        fh.seek(size)
+        added = fh.read().splitlines()
+    if any(line.startswith("# FAILED") for line in added):
+        fail(f"the harness wrote a FAILED row to {name}: {added}")
+    rows = [line.split(",") for line in added if not line.startswith("#")]
+    if len(rows) != 1 or len(rows[0]) != columns or int(rows[0][0]) != k:
+        fail(f"the harness row of {name} at k={k} is missing: {added}")
+    if not all(float(v) > 0 for v in rows[0][1:]):
+        fail(f"the harness row of {name} holds no time: {added}")
+    log(f"[harness] {name} row: {','.join(rows[0])} ms")
+    return rows[0]
+
+
+# ------------------------------------------------------ 9 univariate PLONK
+
+def phase9_univariate(torch, k, launches, reset_launches, shapes):
+    """Univariate (halo2-style) PLONK over BN254 with the univariate KZG at k
+    on phase 4's circuit: setup (4·2^k powers), preprocess with its spans, a
+    warm-up and a timed prove (K1 and K2 only), verify and a flipped byte;
+    then one forward NTT of 4·2^k points timed; then the harness's
+    univariate_plonk row at k = 16."""
+    from plonkish_tpu_torch.backend.univariate import UnivariatePlonk
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.pcs.univariate_kzg import UnivariateKzg
+    from plonkish_tpu_torch.poly import ntt
+    from plonkish_tpu_torch.utils import timer
+
+    spec = BN254_FR
+    tag = f"univariate k={k}"
+    ci, circuit = shapes.pop("circuit")
+    backend = UnivariatePlonk(UnivariateKzg())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    param = backend.setup(ci, random.Random(0))
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    timer.set_sync(torch.cuda.synchronize)
+    timer.set_enabled(True)
+    timer.reset_trace()
+    t0 = time.time()
+    pp, vp = backend.preprocess(param, ci)
+    torch.cuda.synchronize()
+    pre_s = time.time() - t0
+    timer.set_enabled(False)
+    spans = ", ".join(f"{n} {sec * 1e3:.1f} ms" for n, d, sec in timer.trace() if d == 0)
+    log(f"[{tag}] setup {setup_s:.2f}s ({param.powers_of_s_g1.shape[0]} powers), preprocess "
+        f"{pre_s:.2f}s ({spans})")
+    del param
+    prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_launches,
+                    must=("msm_bucket_sums", "msm_window_sums"),
+                    must_not=("sumcheck_round", "sumcheck_fold"))
+    del backend, pp, vp, ci, circuit
+    torch.cuda.empty_cache()
+
+    n = 4 << k
+    gen = torch.Generator().manual_seed(9)
+    x = limb.to_mont(spec, rand_field(torch, spec, n, gen))
+    ntt_ms = cuda_ms(torch, lambda: ntt.ntt(spec, x), 3)
+    log(f"[{tag}] NTT forward of 2^{n.bit_length() - 1} points: {ntt_ms:.3f} ms")
+    del x
+    torch.cuda.empty_cache()
+    harness_row(["--system", "univariate_plonk"], "univariate_plonk", K_UNIVARIATE_ROW, 2,
+                launches, reset_launches)
+
+
+# ------------------------------------------------------ 10 benchmark circuits
+
+def phase10_circuits(torch, k, launches, reset_launches, shapes):
+    """HyperPlonk over BN254 with multilinear KZG on the harness's circuits:
+    the aggregation ladder at k (phase 4's SRS) and sha256 at K_SHA256, each
+    synthesised, preprocessed, proved (warm-up, then timed with spans, peak
+    and K1-K4 launches), verified and a flipped byte rejected; then the
+    harness's hyperplonk rows of both circuits at smaller k."""
+    from plonkish_tpu_torch import benchmark
+    from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+
+    spec = BN254_FR
+    for name, kk in (("aggregation", k), ("sha256", K_SHA256)):
+        tag = f"{name} k={kk}"
+        t0 = time.time()
+        info, circuit = benchmark._circuit_fn(name)(spec, kk, random.Random(42),
+                                                    random.Random(4242))
+        synth_s = time.time() - t0
+        backend = HyperPlonk(MultilinearKzg())
+        torch.cuda.synchronize()
+        t0 = time.time()
+        param = shapes.pop("param") if kk == shapes["k"] else backend.setup(info, random.Random(0))
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        t0 = time.time()
+        pp, vp = backend.preprocess(param, info)
+        torch.cuda.synchronize()
+        pre_s = time.time() - t0
+        log(f"[{tag}] synthesis {synth_s:.2f}s ({info.num_poly()} polynomials, "
+            f"{len(info.constraints)} constraints, {len(circuit.instances()[0])} instances), "
+            f"setup {setup_s:.2f}s{' (phase 4 SRS)' if kk == shapes['k'] else ''}, "
+            f"preprocess {pre_s:.2f}s")
+        prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_launches,
+                        must=PROVER_KERNELS)
+        del backend, pp, vp, param, info, circuit
+        torch.cuda.empty_cache()
+    for name, kk in (("aggregation", K_AGGREGATION_ROW), ("sha256", K_SHA256_ROW)):
+        harness_row(["--system", "hyperplonk", "--circuit", name], "hyperplonk", kk, 2,
+                    launches, reset_launches)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ from ...fields.host import Fp
 from ...fields.spec import FieldSpec
 from ...piop.evaluator import evaluate_on_hypercube, identity_digits
 from ...piop.sum_check import ClassicSumCheck, VirtualPolynomial
-from ...poly.multilinear import MLPoly
+from ...poly.multilinear import MLPoly, evaluate_for_rotations
 from ...utils.bh import BooleanHypercube
 from ...utils.expression import Expression
 from ...utils.transcript import Keccak256Transcript
@@ -222,12 +222,18 @@ def prove_sum_check(
     queries = pcs_query(expression, num_instance_poly)
     offsets = point_offset(queries)
 
+    # the rotated queries' partial evaluations, one batch per rotation
+    rotated = {}
+    for rotation in {q.rotation for q in queries if q.rotation.value != 0}:
+        group = [q for q in queries if q.rotation == rotation]
+        values = evaluate_for_rotations([polys[q.poly] for q in group], x, rotation)
+        rotated.update(zip(group, values))
     out_evals = []
     for query in queries:
         if query.rotation.value == 0:
             rotation_evals = [evals[query.poly]]
         else:
-            rotation_evals = polys[query.poly].evaluate_for_rotation(x, query.rotation)
+            rotation_evals = rotated[query]
         for i, eval_ in enumerate(rotation_evals):
             out_evals.append(Evaluation(query.poly, offsets[query.rotation] + i, eval_))
     transcript.write_field_elements([e.value for e in out_evals])

@@ -15,15 +15,20 @@ On the card the ``zero_check`` system prints the share of the roofline the
 prove reached, against the peaks that the ``mont_mul`` chain probe measures
 in the same process (``roofline.measure_peaks``).
 
-Systems: ``hyperplonk`` (a whole proof), ``zero_check`` (the sum-check prover
-alone over the composed vanilla-PLONK expression), ``pcs`` (commit and open of
-one polynomial), ``protostar`` and ``sangria`` (the average of
-``max(2, samples // 2)`` folds, then a ``# decider k=...: ... ms`` row for a
-decider that the verifier accepted); ``--pcs`` picks kzg, brakedown, gemini,
-zeromorph, ipa or hyrax for ``pcs`` and ``hyperplonk``, and every one but
-brakedown (which cannot combine commitments) for the folding systems; the
-rows of ``pcs`` go to target/bench_torch/pcs_<name>.  The multilinear KZG SRS
-is cached under target/srs_cache_torch/; ``--setup-only`` writes the
+Systems: ``hyperplonk`` (a whole proof), ``univariate_plonk`` (the
+halo2-style comparison system: NTT and univariate KZG, vanilla PLONK only),
+``zero_check`` (the sum-check prover alone over the composed vanilla-PLONK
+expression), ``pcs`` (commit and open of one polynomial), ``protostar`` and
+``sangria`` (the average of ``max(2, samples // 2)`` folds, then a
+``# decider k=...: ... ms`` row for a decider that the verifier accepted);
+``--pcs`` picks kzg, brakedown, gemini, zeromorph, ipa or hyrax for ``pcs``
+and ``hyperplonk``, and every one but brakedown (which cannot combine
+commitments) for the folding systems; the rows of ``pcs`` go to
+target/bench_torch/pcs_<name>.  ``--circuit`` picks vanilla_plonk,
+vanilla_plonk_with_lookup, sha256 (as many blocks as fit in 2^k rows) or
+aggregation (an in-circuit Grumpkin double-and-add ladder) for
+``hyperplonk`` and the folding systems.  The multilinear KZG SRS and the
+univariate one are cached under target/srs_cache_torch/; ``--setup-only`` writes the
 zero-check tables of each k to target/setup_cache_torch/, and a later run of
 the same k reads them instead of synthesising the circuit again.  Each cache
 file's name holds a fingerprint of the sources that produce it, so that a
@@ -70,8 +75,18 @@ def source_fingerprint(sources) -> str:
     return h.hexdigest()[:12]
 
 
+UNIVARIATE_SRS_SOURCES = SRS_SOURCES[1:] + ("pcs/univariate_kzg.py", "poly/univariate.py")
+
+
 def srs_cache_path(k: int, seed: int) -> str:
     return f"{SRS_CACHE_DIR}/kzg_k{k}_seed{seed}_{source_fingerprint(SRS_SOURCES)}.npz"
+
+
+def univariate_srs_cache_path(k: int, seed: int) -> str:
+    """The univariate KZG SRS of a k-row univariate PLONK circuit (4·2^k
+    powers)."""
+    return (f"{SRS_CACHE_DIR}/univariate_kzg_k{k}_seed{seed}_"
+            f"{source_fingerprint(UNIVARIATE_SRS_SOURCES)}.npz")
 
 
 def setup_cache_path(circuit: str, k: int) -> str:
@@ -146,11 +161,11 @@ def _main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument(
         "--system", default="hyperplonk",
-        choices=["hyperplonk", "zero_check", "pcs", "protostar", "sangria"],
+        choices=["hyperplonk", "univariate_plonk", "zero_check", "pcs", "protostar", "sangria"],
     )
     ap.add_argument(
         "--circuit", default="vanilla_plonk",
-        choices=["vanilla_plonk", "vanilla_plonk_with_lookup"],
+        choices=["vanilla_plonk", "vanilla_plonk_with_lookup", "sha256", "aggregation"],
     )
     ap.add_argument("--k", default="8..10", help="range, e.g. 8..12")
     ap.add_argument("--pcs", default="kzg", choices=list(PCS_CHOICES))
@@ -184,6 +199,8 @@ def _main(argv=None) -> None:
         ap.error("--profile traces a hyperplonk prove on the card")
     if args.system in FOLDING_SYSTEMS and args.pcs == "brakedown":
         ap.error(f"--system {args.system} folds commitments; brakedown cannot combine them")
+    if args.system in ("zero_check", "univariate_plonk") and args.circuit != "vanilla_plonk":
+        ap.error(f"--system {args.system} takes --circuit vanilla_plonk only")
 
     def sync():
         if on_card:
@@ -217,6 +234,8 @@ def _main(argv=None) -> None:
 
     if args.system == "zero_check":
         _bench_zero_check(args, ks, device, sync, out_path)
+    elif args.system == "univariate_plonk":
+        _bench_univariate(args, ks, device, sync, out_path)
     elif args.system in FOLDING_SYSTEMS:
         _bench_folding(args, ks, device, sync, out_path)
     elif args.system == "pcs":
@@ -225,7 +244,19 @@ def _main(argv=None) -> None:
         _bench_hyperplonk(args, ks, device, sync, out_path)
 
 
+def rand_sha256(spec, k, _rng1, _rng2):
+    """As many chained 512-bit blocks as fit in 2^k rows, from message seed
+    42 (the reference's sha256 bench circuit, plonkish_tpu/benchmark.py:221)."""
+    from .models.sha256 import message_for_blocks, sha256_circuit
+
+    m = ((1 << k) - 10) // 140
+    assert m >= 1, f"k={k} too small for one sha256 block"
+    info, circuit, _ = sha256_circuit(message_for_blocks(m, seed=42), k=k, spec=spec)
+    return info, circuit
+
+
 def _circuit_fn(name: str):
+    from .models.aggregation import rand_aggregation_circuit
     from .models.circuits import (
         rand_vanilla_plonk_circuit,
         rand_vanilla_plonk_with_lookup_circuit,
@@ -234,6 +265,8 @@ def _circuit_fn(name: str):
     return {
         "vanilla_plonk": rand_vanilla_plonk_circuit,
         "vanilla_plonk_with_lookup": rand_vanilla_plonk_with_lookup_circuit,
+        "sha256": rand_sha256,
+        "aggregation": rand_aggregation_circuit,
     }[name]
 
 
@@ -337,7 +370,6 @@ def _bench_zero_check(args, ks, device, sync, out_path) -> None:
     from .piop.sum_check import ClassicSumCheck
     from .utils.transcript import Keccak256Transcript
 
-    assert args.circuit == "vanilla_plonk", "zero_check: vanilla only"
     on_card = device.type == "cuda"
     for k in ks:
         _FAIL_NOTE["k"] = k
@@ -566,6 +598,103 @@ def _bench_folding(args, ks, device, sync, out_path) -> None:
 
 
 # ---------------------------------------------------------------------------
+# univariate_plonk: the halo2-style comparison system
+# ---------------------------------------------------------------------------
+
+def _bench_univariate(args, ks, device, sync, out_path) -> None:
+    """The reference's univariate_plonk rows (plonkish_tpu/benchmark.py:
+    572-611): vanilla PLONK from seeds 42 and 4242, the univariate KZG SRS
+    from seed 0, the average prove time, written after the verifier accepted
+    the last proof.  On the card an untimed prove warms up first."""
+    import torch
+
+    from .backend.univariate import UnivariatePlonk
+    from .pcs.univariate_kzg import UnivariateKzg
+    from .utils.transcript import Keccak256Transcript
+
+    on_card = device.type == "cuda"
+    for k in ks:
+        _FAIL_NOTE["k"] = k
+        backend = UnivariatePlonk(UnivariateKzg(device=device))
+        spec = backend.field_spec
+        _prog(f"k={k}: generating circuit ({args.circuit})")
+        circuit_info, circuit = _circuit_fn(args.circuit)(
+            spec, k, random.Random(42), random.Random(4242)
+        )
+        _prog(f"k={k}: setup (SRS)")
+        param = _univariate_setup_cached(backend, circuit_info, k, device)
+        _prog(f"k={k}: preprocess")
+        pp, vp = backend.preprocess(param, circuit_info)
+        samples = args.samples or _sample_size(k)
+        warm_note = ""
+        if on_card:
+            sync()
+            t0 = time.perf_counter()
+            backend.prove(pp, circuit, Keccak256Transcript(spec))
+            sync()
+            warm_note = f", warm-up {(time.perf_counter() - t0) * 1e3:.0f} ms"
+            torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        proof = None
+        for _ in range(samples):
+            tr = Keccak256Transcript(spec)
+            sync()
+            t0 = time.perf_counter()
+            backend.prove(pp, circuit, tr)
+            sync()
+            times.append(time.perf_counter() - t0)
+            proof = tr.into_proof()
+        peak_note = ""
+        if on_card:
+            peak_note = (f", peak device memory "
+                         f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+        backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(spec, proof))
+        avg_ms = sum(times) / len(times) * 1e3
+        _append_series(out_path, f"{k}, {avg_ms:.3f}\n")
+        print(f"k={k} univariate_plonk prove avg {avg_ms:.1f} ms (avg of {samples}"
+              f"{warm_note}){peak_note}, verified", flush=True)
+
+
+def _univariate_setup_cached(backend, circuit_info, k: int, device, seed=0):
+    """Disk-cache the univariate KZG SRS (4·2^k powers of s in G1 and the G2
+    points), as `_setup_cached` does the multilinear one."""
+    import numpy as np
+    import torch
+
+    from .curves.host import AffinePoint
+    from .pcs.univariate_kzg import UnivariateKzgParam
+
+    path = univariate_srs_cache_path(k, seed)
+    if os.path.exists(path):
+        with np.load(path) as z:
+            meta = json.loads(str(z["meta"]))
+            powers = torch.from_numpy(z["powers"]).to(device)
+        return UnivariateKzgParam(
+            powers_of_s_g1=powers, g1=AffinePoint.generator(backend.pcs.curve),
+            g2=_g2_from(meta["g2"]), s_g2=_g2_from(meta["s_g2"]),
+            offset_g2={int(off): _g2_from(pt) for off, pt in meta["offset_g2"].items()},
+        )
+    param = backend.setup(circuit_info, random.Random(seed))
+    os.makedirs(SRS_CACHE_DIR, exist_ok=True)
+    meta = {
+        "g2": _g2_to(param.g2), "s_g2": _g2_to(param.s_g2),
+        "offset_g2": {str(off): _g2_to(pt) for off, pt in param.offset_g2.items()},
+    }
+    np.savez(path, meta=json.dumps(meta), powers=param.powers_of_s_g1.cpu().numpy())
+    return param
+
+
+def _g2_to(pt):
+    return [int(pt.x.a), int(pt.x.b), int(pt.y.a), int(pt.y.b)]
+
+
+def _g2_from(d):
+    from .curves.pairing import Fq2, G2Point
+
+    return G2Point(Fq2(d[0], d[1]), Fq2(d[2], d[3]))
+
+
+# ---------------------------------------------------------------------------
 # hyperplonk: a whole proof
 # ---------------------------------------------------------------------------
 
@@ -713,7 +842,6 @@ def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
     import torch
 
     from .curves.host import AffinePoint
-    from .curves.pairing import Fq2, G2Point
     from .curves.specs import BN254_G1
     from .fields.host import Fp
     from .pcs.kzg import MultilinearKzgParams
@@ -732,24 +860,17 @@ def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
         def pt(d):
             return AffinePoint(curve, Fp(d[0], fq), Fp(d[1], fq))
 
-        def g2pt(d):
-            return G2Point(Fq2(d[0], d[1]), Fq2(d[2], d[3]))
-
         return MultilinearKzgParams(
-            g1=pt(meta["g1"]), eqs=eqs, g2=g2pt(meta["g2"]),
-            ss=[g2pt(d) for d in meta["ss"]],
+            g1=pt(meta["g1"]), eqs=eqs, g2=_g2_from(meta["g2"]),
+            ss=[_g2_from(d) for d in meta["ss"]],
         )
     param = backend.setup(circuit_info, random.Random(seed))
     os.makedirs(SRS_CACHE_DIR, exist_ok=True)
     meta = {
         "levels": len(param.eqs),
         "g1": [int(param.g1.x), int(param.g1.y)],
-        "g2": [int(param.g2.x.a), int(param.g2.x.b),
-               int(param.g2.y.a), int(param.g2.y.b)],
-        "ss": [
-            [int(s.x.a), int(s.x.b), int(s.y.a), int(s.y.b)]
-            for s in param.ss
-        ],
+        "g2": _g2_to(param.g2),
+        "ss": [_g2_to(s) for s in param.ss],
     }
     arrays = {f"eq{i}": e.cpu().numpy() for i, e in enumerate(param.eqs)}
     np.savez(path, meta=json.dumps(meta), **arrays)

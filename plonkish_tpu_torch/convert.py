@@ -184,3 +184,42 @@ def accumulator_to_reference(acc) -> dict:
         "witness_polys": [limbs_to_digits(p.evals) for p in acc.witness_polys],
         "e_poly": limbs_to_digits(acc.e_poly.evals),
     }
+
+
+# ---------------------------------------------------------------------------
+# Univariate PLONK params
+# ---------------------------------------------------------------------------
+
+def univariate_plonk_params_from_reference(pp, vp, device="cpu"):
+    """A reference ``UnivariatePlonkProverParam`` and its verifier param ->
+    the port's, on `device`: the univariate KZG SRS (powers of s in G1 and
+    the G2 points), the selector and σ coefficients, σ's values on H and the
+    commitments; the coset tables are computed from the coefficients."""
+    from .backend.univariate import (
+        UnivariatePlonkProverParam, UnivariatePlonkVerifierParam, coset_tables,
+    )
+    from .fields.spec import BN254_FR as spec
+    from .pcs.univariate_kzg import UnivariateKzgProverParam, UnivariateKzgVerifierParam
+
+    assert pp.spec.name == spec.name, pp.spec.name
+    g1 = g1_from_reference(pp.kzg_pp.g1)
+    tensors = lambda ts: [digits_to_limbs(t, device) for t in ts]  # noqa: E731
+    comms = lambda cs: [g1_from_reference(c) for c in cs]  # noqa: E731
+    ours = UnivariatePlonkProverParam(
+        spec=spec, k=pp.k,
+        kzg_pp=UnivariateKzgProverParam(
+            g1=g1, powers_of_s_g1=basis_from_reference(pp.kzg_pp.powers_of_s_g1, device=device)),
+        fixed_coeffs=tensors(pp.fixed_coeffs), sigma_coeffs=tensors(pp.sigma_coeffs),
+        fixed_comms=comms(pp.fixed_comms), sigma_comms=comms(pp.sigma_comms),
+        sigma_evals=tensors(pp.sigma_evals), num_instances=pp.num_instances,
+    )
+    coset_tables(ours)
+    ours_vp = UnivariatePlonkVerifierParam(
+        spec=spec, k=vp.k,
+        kzg_vp=UnivariateKzgVerifierParam(
+            g1=g1_from_reference(vp.kzg_vp.g1), g2=g2_from_reference(vp.kzg_vp.g2),
+            s_g2=g2_from_reference(vp.kzg_vp.s_g2)),
+        fixed_comms=comms(vp.fixed_comms), sigma_comms=comms(vp.sigma_comms),
+        num_instances=vp.num_instances,
+    )
+    return ours, ours_vp

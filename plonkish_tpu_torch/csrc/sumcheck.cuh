@@ -5,7 +5,8 @@
 // expression and size.  Here too every expression gets its own code:
 // kernels/sumcheck_gen.py emits the expression's tape (piop/tape.py) as a
 // struct `Tape` whose `eval` is one statement per instruction on named Fe
-// locals, so that nvcc keeps the tape's registers in registers, and
+// locals, so that nvcc keeps the tape's registers in registers (a tape with
+// more registers than fit keeps them in a local array, sc_regfile), and
 // instantiates the templates below with it.  The constants' values are read
 // from `consts` at run time: one kernel serves every proof whose expression
 // has the same structure.  The field is the Tape's (`Tape::F`: Fr for
@@ -89,6 +90,23 @@ PK_HD Fe sc_identity(const uint32_t* ids, int64_t i, int tm1) {
 }
 
 PK_HD Fe sc_const(const uint32_t* consts, int j) { return fe_load(consts + 8 * j); }
+
+// The register file of a tape with more registers than a thread can hold
+// (kernels/sumcheck_gen.py REGFILE_ABOVE): the tape's registers live in a
+// local array whose address passes through an empty asm, so the compiler
+// cannot promote them to registers.  Every statement then loads its
+// operands from the array and stores its result there.  Named locals spill
+// to the same local memory on such a tape, but ptxas took minutes to
+// allocate them; the array, its statements in out-of-line parts
+// (REGFILE_PART), builds several times faster (PERF.md, the sha256 tape).
+PK_HD Fe* sc_regfile(Fe* file) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+l"(file));
+#else
+  asm volatile("" : "+r"(file));
+#endif
+  return file;
+}
 
 // One thread's sum of the expression at t = tm1 + 1 over pairs first,
 // first + stride, ... below s.

@@ -54,40 +54,45 @@ def _check_state(stacked: torch.Tensor):
 
 def sumcheck_round_plain(spec, stacked, instrs, consts, num_regs, out_reg,
                          degree, id_params):
-    """The tape evaluated over whole tensors for t = 1..degree, then summed."""
+    """The tape evaluated once over whole tensors that hold every t = 1..degree
+    side by side (t-major), then summed per t."""
     c = limb._consts(spec, stacked.device)
     t_count, rows, _ = stacked.shape
     s = rows // 2
     flat = limb.unpack(stacked).reshape(16, t_count, rows)
     lo, hi = flat[:, :, 0::2], flat[:, :, 1::2]
-    cur = [hi[:, j] for j in range(t_count)]
-    step = [limb.d_sub(hi[:, j], lo[:, j], c) for j in range(t_count)]
+
+    def over_t(first, step):
+        """first, first + step, ... (degree values) side by side."""
+        vals = [first]
+        for _ in range(degree - 1):
+            vals.append(limb.d_add(vals[-1], step, c))
+        return torch.cat(vals, dim=1)
+
     id_mul, id_base, id_step = (limb.unpack(v) for v in id_params)
     i = torch.arange(s, dtype=torch.int64, device=stacked.device)
     i_digits = torch.zeros((16, s), dtype=torch.int64, device=stacked.device)
     i_digits[0], i_digits[1] = i & 0xFFFF, i >> 16
-    ident = limb.d_add(limb.d_mul(i_digits, id_mul, c), id_base, c)
+    ident = over_t(limb.d_add(limb.d_mul(i_digits, id_mul, c), id_base, c), id_step)
     cvals = limb.unpack(consts)
-    out = []
-    for t in range(1, degree + 1):
-        if t > 1:
-            cur = [limb.d_add(a, b, c) for a, b in zip(cur, step)]
-            ident = limb.d_add(ident, id_step, c)
-        regs = [None] * num_regs
-        for op, a, b, dst in np.asarray(instrs).tolist():
-            if op == tape_mod.OP_ADD:
-                v = limb.d_add(regs[a], regs[b], c)
-            elif op == tape_mod.OP_MUL:
-                v = limb.d_mul(regs[a], regs[b], c)
-            elif op == tape_mod.OP_NEG:
-                v = limb.d_neg(regs[a], c)
-            elif op == tape_mod.OP_CONST:
-                v = cvals[:, a: a + 1].expand(16, s)
-            else:
-                v = ident if a == t_count else cur[a]
-            regs[dst] = v
-        out.append(limb.d_sum(regs[out_reg], c))
-    return limb.pack(torch.cat(out, dim=1))
+    regs = [None] * num_regs
+    for op, a, b, dst in np.asarray(instrs).tolist():
+        if op == tape_mod.OP_ADD:
+            v = limb.d_add(regs[a], regs[b], c)
+        elif op == tape_mod.OP_MUL:
+            v = limb.d_mul(regs[a], regs[b], c)
+        elif op == tape_mod.OP_NEG:
+            v = limb.d_neg(regs[a], c)
+        elif op == tape_mod.OP_CONST:
+            v = cvals[:, a: a + 1].expand(16, degree * s)
+        elif a == t_count:
+            v = ident
+        else:
+            h = hi[:, a].contiguous()
+            v = over_t(h, limb.d_sub(h, lo[:, a], c))
+        regs[dst] = v
+    lazy = regs[out_reg].expand(16, degree * s).reshape(16, degree, s).sum(dim=2)
+    return limb.pack(limb.d_mul(limb.d_redc(lazy, c), c["r2"], c))
 
 
 FOLD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,

@@ -7,7 +7,10 @@ writes that struct from a compiled tape (piop/tape.py) whose leaf operands are
 rows of the stacked state, as ``EvaluationsProver`` remaps them (row T, one
 past the tables, is the identity leaf): one ``Fe`` local per tape register
 and one statement per instruction, with no switch and no array indexed at run
-time, so that nvcc keeps the registers in registers.  A constant is read from
+time, so that nvcc keeps the registers in registers (a tape of more than
+REGFILE_ABOVE registers keeps them in a local array instead, its statements
+in out-of-line parts, since nvcc took minutes over one function of named
+locals).  A constant is read from
 the constant table at run time by its row, so the source depends on the
 tape's structure and never on the constants' values: the proofs of one
 circuit share one kernel whatever their challenges.
@@ -44,6 +47,13 @@ from ..utils import expression as ex
 from . import build, field_struct
 
 WARP = 32
+# Tapes with more registers than this keep them in a local array
+# (csrc/sumcheck.cuh sc_regfile) instead of named locals: 64 registers of eight
+# words are twice the 255 a thread has.  Their statements are written in
+# out-of-line parts of REGFILE_PART statements each, run in order on the same
+# array, since nvcc's time grew faster than the length of one function.
+REGFILE_ABOVE = 64
+REGFILE_PART = 128
 HEADERS = ("field.cuh", "sumcheck.cuh")
 ROUND_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -86,14 +96,16 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
         raise ValueError(f"degree must be at least 1, got {degree}")
     field = field_struct(spec)
     ops = instrs[:, 0].tolist()
+    regfile = num_regs > REGFILE_ABOVE
+    r = (lambda j: f"r[{j}]") if regfile else (lambda j: f"r{j}")  # noqa: E731
     body = []
     for op, a, b, dst in instrs.tolist():
         if op == tape_mod.OP_ADD:
-            rhs = f"fe_add<F>(r{a}, r{b})"
+            rhs = f"fe_add<F>({r(a)}, {r(b)})"
         elif op == tape_mod.OP_MUL:
-            rhs = f"sc_mul<F>(r{a}, r{b})"
+            rhs = f"sc_mul<F>({r(a)}, {r(b)})"
         elif op == tape_mod.OP_NEG:
-            rhs = f"fe_neg<F>(r{a})"
+            rhs = f"fe_neg<F>({r(a)})"
         elif op == tape_mod.OP_CONST:
             rhs = f"sc_const(consts, {a})"
         elif op == tape_mod.OP_LOAD and a == tables:
@@ -102,8 +114,19 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
             rhs = f"sc_leaf<F>(state, s, {a}, i, tm1)"
         else:
             raise ValueError(f"bad tape instruction {(op, a, b, dst)} for {tables} tables")
-        body.append(f"    r{dst} = {rhs};")
-    regs = ", ".join(f"r{j}" for j in range(num_regs))
+        body.append(f"    {r(dst)} = {rhs};")
+    args = ("const uint32_t* state, int64_t s, int64_t i, int tm1, const uint32_t* consts, "
+            "const uint32_t* ids")
+    parts = []
+    if regfile:
+        chunks = [body[j: j + REGFILE_PART] for j in range(0, len(body), REGFILE_PART)]
+        for n, chunk in enumerate(chunks):
+            parts += [f"  __host__ __device__ PK_SC_NOINLINE static void part{n}(Fe* r, {args}) {{",
+                      "    (void)state, (void)s, (void)i, (void)tm1, (void)consts, (void)ids;",
+                      *chunk, "  }"]
+        body = [f"    part{n}(r, state, s, i, tm1, consts, ids);" for n in range(len(chunks))]
+    regs = (f"Fe file[{num_regs}];\n    Fe* r = sc_regfile(file);" if regfile
+            else f"Fe {', '.join(f'r{j}' for j in range(num_regs))};")
     return "\n".join([
         "// Generated by plonkish_tpu_torch/kernels/sumcheck_gen.py: the sum-check",
         f"// round kernel K3 for one expression tape ({len(ops)} instructions, "
@@ -116,12 +139,12 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
         "struct Tape {",
         f"  using F = {field};",
         f"  static constexpr int DEGREE = {degree};",
-        "  PK_HD static Fe eval(const uint32_t* state, int64_t s, int64_t i, int tm1,",
-        "                       const uint32_t* consts, const uint32_t* ids) {",
+        *parts,
+        f"  PK_HD static Fe eval({args}) {{",
         "    (void)state, (void)consts, (void)ids;",
-        f"    Fe {regs};",
+        f"    {regs}",
         *body,
-        f"    return r{out_reg};",
+        f"    return {r(out_reg)};",
         "  }",
         "};",
         "",

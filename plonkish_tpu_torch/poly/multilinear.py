@@ -94,48 +94,60 @@ class MLPoly:
     def evaluate_for_rotation(self, point: Sequence[Fp], rotation: Rotation) -> List[Fp]:
         """Partial evals recombinable by `rotation_eval` into the evaluation
         of the rotated polynomial (multilinear.rs:191-263)."""
-        spec = self.spec
-        num_vars = self.num_vars
         if rotation.value == 0:
             return [self.evaluate(point)]
-        distance = rotation.distance
-        num_x = num_vars - distance
-        x = [Fp(int(p), spec) for p in point]
+        return evaluate_for_rotations([self], point, rotation)[0]
 
-        def cst(v):
-            return limb.const(spec, int(v), self.device)
 
-        out = []
-        if rotation.value < 0:
-            xs = x[distance:]
-            pattern = rotation_eval_point_pattern(num_vars, distance, next_=False)
-            offset_mask = (1 << num_vars) - (1 << num_x)
+def evaluate_for_rotations(polys: Sequence[MLPoly], point: Sequence[Fp],
+                           rotation: Rotation) -> List[List[Fp]]:
+    """``[p.evaluate_for_rotation(point, rotation) for p in polys]`` with the
+    folds of every polynomial and every pattern batched: one fold pass per
+    variable over all of them (each pattern row takes x_i or 1 - x_i), and
+    one read from the device."""
+    if rotation.value == 0 or not polys:
+        return [p.evaluate_for_rotation(point, rotation) for p in polys]
+    spec = polys[0].spec
+    num_vars = polys[0].num_vars
+    device = polys[0].device
+    c = limb._consts(spec, device)
+    distance = rotation.distance
+    num_x = num_vars - distance
+    x = [int(p) for p in point]
+    D = limb.D
+    if rotation.value < 0:
+        xs = x[distance:]
+        pattern = rotation_eval_point_pattern(num_vars, distance, next_=False)
+        offsets = [pat & ((1 << num_vars) - (1 << num_x)) for pat in pattern]
+        rows = torch.stack([p.evals[off: off + (1 << num_x)] for p in polys for off in offsets])
+        flips = [[(pat >> i) & 1 for pat in pattern] for i in range(num_x)]
+        d = limb.unpack(rows).reshape(D, len(rows), 1 << num_x)
+    else:
+        xs = x[:num_x]
+        pattern = rotation_eval_point_pattern(num_vars, distance, next_=True)
+        step = 1 << (distance + 1)
+        lo_hi = []
+        for p in polys:
+            grid = p.evals.reshape(-1, step, limb.L)
             for pat in pattern:
-                offset = pat & offset_mask
-                evals = self.evals[offset: offset + (1 << num_x)]
-                for idx, x_i in enumerate(xs):
-                    xv = 1 - x_i if (pat >> idx) & 1 else x_i
-                    evals = limb.fold_pairs(spec, evals, cst(xv))
-                out.append(evals)
-        else:
-            xs = x[:num_x]
-            pattern = rotation_eval_point_pattern(num_vars, distance, next_=True)
-            skip_mask = (1 << distance) - 1
-            step = 1 << (distance + 1)
-            for pat in pattern:
-                skip = pat & skip_mask
-                x_0 = 1 - xs[0] if (pat >> distance) & 1 else xs[0]
-                grid = self.evals.reshape(-1, step, limb.L)
-                evals = limb.fold_halves(
-                    spec, grid[:, skip], grid[:, skip + step // 2], cst(x_0)
-                )
-                for i in range(1, num_x):
-                    x_i = xs[i]
-                    xv = 1 - x_i if (pat >> (distance + i)) & 1 else x_i
-                    evals = limb.fold_pairs(spec, evals, cst(xv))
-                out.append(evals)
-        vals = limb.to_canonical_ints(spec, torch.cat(out, dim=0))
-        return [Fp(v, spec) for v in vals]
+                skip = pat & ((1 << distance) - 1)
+                lo_hi.append(torch.stack([grid[:, skip], grid[:, skip + step // 2]], dim=1))
+        rows = torch.stack(lo_hi).reshape(len(lo_hi), -1, limb.L)  # pairs (lo, hi) side by side
+        flips = [[(pat >> (distance + i)) & 1 for pat in pattern] for i in range(num_x)]
+        d = limb.unpack(rows).reshape(D, len(rows), -1)
+    q = d.shape[1]
+    for x_i, flip in zip(xs, flips):
+        one_minus = (1 - x_i) % spec.p
+        cols = torch.cat([limb.d_const(spec, one_minus if f else x_i, device) for f in flip],
+                         dim=1).repeat(1, len(polys))  # [16, q]
+        half = d.shape[2] // 2
+        lo = d[:, :, 0::2].reshape(D, -1)
+        hi = d[:, :, 1::2].reshape(D, -1)
+        cx = cols.unsqueeze(2).expand(D, q, half).reshape(D, -1)
+        d = limb.d_add(lo, limb.d_mul(limb.d_sub(hi, lo, c), cx, c), c).reshape(D, q, half)
+    vals = limb.to_canonical_ints(spec, limb.pack(d.reshape(D, q)))
+    n_pat = len(pattern)
+    return [[Fp(v, spec) for v in vals[j * n_pat:(j + 1) * n_pat]] for j in range(len(polys))]
 
 
 def eq_xy_evals(spec: FieldSpec, y: Sequence[Fp], device) -> torch.Tensor:

@@ -273,3 +273,104 @@ def test_decider_round_kernels_match_plain(cuda, system, circuit, field):
     args = (state.stacked, prover.instrs, prover.consts, prover.tape.num_regs,
             prover.tape.out_reg, state.degree, ids)
     assert torch.equal(ksc.sumcheck_round_cuda(spec, *args), ksc.sumcheck_round_plain(spec, *args))
+
+
+def _both_devices(prove):
+    """prove(device) on the CPU and on the card: (cpu proof, card proof)."""
+    return prove(torch.device("cpu")), prove(torch.device("cuda"))
+
+
+@pytest.mark.gpu
+def test_univariate_plonk_k5_on_the_card(cuda):
+    """Univariate PLONK at k = 5 on the card gives the CPU's proof bytes; K1
+    and K2 launch, K3 and K4 do not."""
+    from plonkish_tpu_torch.backend.univariate import UnivariatePlonk
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES, reset_launches
+    from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+    from plonkish_tpu_torch.pcs.univariate_kzg import UnivariateKzg
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    def prove(device):
+        info, circuit = rand_vanilla_plonk_circuit(BN254_FR, 5, random.Random(47), random.Random(4247))
+        backend = UnivariatePlonk(UnivariateKzg(device=device))
+        pp, vp = backend.preprocess(backend.setup(info, random.Random(0)), info)
+        reset_launches()
+        tr = Keccak256Transcript(BN254_FR)
+        backend.prove(pp, circuit, tr)
+        proof = tr.into_proof()
+        backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(BN254_FR, proof))
+        return proof, dict(LAUNCHES)
+
+    (cpu, _), (card, launches) = _both_devices(prove)
+    assert card == cpu
+    assert launches["msm_bucket_sums"] > 0 and launches["msm_window_sums"] > 0, launches
+    assert launches["sumcheck_round"] == 0 and launches["sumcheck_fold"] == 0, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("circuit", ["aggregation", "sha256"])
+def test_benchmark_circuit_proof_on_the_card(cuda, circuit):
+    """HyperPlonk + KZG on the aggregation ladder at k = 5 and on one sha256
+    block (k = 8) on the card gives the CPU's proof bytes, through K1-K4."""
+    from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES, reset_launches
+    from plonkish_tpu_torch.models.aggregation import rand_aggregation_circuit
+    from plonkish_tpu_torch.models.sha256 import sha256_circuit
+    from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    def prove(device):
+        if circuit == "aggregation":
+            info, c = rand_aggregation_circuit(BN254_FR, 5, random.Random(1), random.Random(2))
+        else:
+            info, c, _ = sha256_circuit(b"abc")
+        backend = HyperPlonk(MultilinearKzg(device=device))
+        pp, vp = backend.preprocess(backend.setup(info, random.Random(7)), info)
+        reset_launches()
+        tr = Keccak256Transcript(BN254_FR)
+        backend.prove(pp, c, tr)
+        proof = tr.into_proof()
+        backend.verify(vp, c.instances(), Keccak256Transcript.from_proof(BN254_FR, proof))
+        return proof, dict(LAUNCHES)
+
+    (cpu, _), (card, launches) = _both_devices(prove)
+    assert card == cpu
+    prover_kernels = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+    assert all(launches[name] > 0 for name in prover_kernels), launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("circuit", ["aggregation", "sha256"])
+def test_benchmark_circuit_round_kernels_match_plain(cuda, circuit):
+    """K3 over the zero-check tapes of the aggregation and sha256 circuits,
+    on random tables at 2^7 pairs and at one pair, against its plain version."""
+    from plonkish_tpu_torch.backend.hyperplonk.preprocessor import compose
+    from plonkish_tpu_torch.fields.host import Fp
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.models.aggregation import rand_aggregation_circuit
+    from plonkish_tpu_torch.models.sha256 import sha256_circuit
+    from plonkish_tpu_torch.piop import sum_check as sc
+    from plonkish_tpu_torch.poly.multilinear import MLPoly
+
+    spec = BN254_FR
+    if circuit == "aggregation":
+        info, _ = rand_aggregation_circuit(spec, 4, random.Random(1), random.Random(2))
+    else:
+        info, _, _ = sha256_circuit(b"abc")
+    expr = compose(info)[1]
+    rng = random.Random(12)
+    num_vars = 8
+    polys = [MLPoly.from_ints(spec, [rng.randrange(spec.p) for _ in range(1 << num_vars)], cuda)
+             for _ in range(1 + max(q.poly for q in expr.used_query()))]
+    vp = sc.VirtualPolynomial(expr, polys, [Fp(rng.randrange(spec.p), spec) for _ in range(3)],
+                              [[Fp(rng.randrange(spec.p), spec) for _ in range(num_vars)]])
+    state = sc.ProverState(spec, num_vars, Fp.zero(spec), vp)
+    prover = sc.EvaluationsProver(state)
+    ids = sc.identity_params(spec, 0, state.identity_offset, cuda)
+    for part in (state.stacked, state.stacked[:, :2].contiguous()):
+        args = (part, prover.instrs, prover.consts, prover.tape.num_regs,
+                prover.tape.out_reg, state.degree, ids)
+        assert torch.equal(ksc.sumcheck_round_cuda(spec, *args), ksc.sumcheck_round_plain(spec, *args))

@@ -61,6 +61,30 @@ print("LOADED", bad)
 """
 
 
+UNIVARIATE_PROBE = r"""
+import random, sys
+from plonkish_tpu_torch.backend.univariate import UnivariatePlonk
+from plonkish_tpu_torch.fields.spec import BN254_FR
+from plonkish_tpu_torch.models.aggregation import rand_aggregation_circuit
+from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+from plonkish_tpu_torch.models.sha256 import sha256_circuit
+from plonkish_tpu_torch.pcs.univariate_kzg import UnivariateKzg
+from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+ci, circuit = rand_vanilla_plonk_circuit(BN254_FR, 3, random.Random(1), random.Random(2))
+backend = UnivariatePlonk(UnivariateKzg(device="cpu"))
+pp, vp = backend.preprocess(backend.setup(ci, random.Random(0)), ci)
+tr = Keccak256Transcript(BN254_FR)
+backend.prove(pp, circuit, tr)
+backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(BN254_FR, tr.into_proof()))
+rand_aggregation_circuit(BN254_FR, 4, random.Random(1), random.Random(2))
+sha256_circuit(b"abc")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "plonkish_tpu" or m.startswith("plonkish_tpu."))
+print("LOADED", bad)
+"""
+
+
 def _loads_no_jax(probe):
     out = subprocess.run(
         [sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -76,6 +100,12 @@ def test_prove_loads_no_jax():
 def test_fold_and_decide_loads_no_jax():
     """Two Protostar folds and a decider at k = 3, verified."""
     _loads_no_jax(FOLD_PROBE)
+
+
+def test_univariate_and_models_load_no_jax():
+    """A univariate PLONK prove and verify at k = 3, and the aggregation and
+    sha256 circuits built through the frontend."""
+    _loads_no_jax(UNIVARIATE_PROBE)
 
 
 def _imports(path):
@@ -110,6 +140,10 @@ def test_entry_points_default_to_cuda():
         MultilinearKzg()
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
+    from plonkish_tpu_torch.backend.univariate import UnivariatePlonk
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UnivariatePlonk()
     assert MultilinearKzg(device="cpu").device.type == "cpu"
 
 

@@ -66,6 +66,19 @@ def test_evaluate_and_rotations(rotation):
     assert int(ml.rotation_eval(x, rot, got)) == int(ref_ml.rotation_eval(rx, ref_ex.Rotation(rotation), want))
 
 
+@pytest.mark.parametrize("rotation", [-4, -2, -1, 1, 3])
+def test_rotations_batched_over_polynomials(rotation):
+    """evaluate_for_rotations (every polynomial and pattern in one fold pass
+    per variable) gives each polynomial the reference's partial evaluations."""
+    pairs = [_poly(6, 20 + i) for i in range(3)]
+    point = _ints(6, 6)
+    got = ml.evaluate_for_rotations([a for a, _ in pairs], [Fp(v, BN254_FR) for v in point],
+                                    ex.Rotation(rotation))
+    for values, (_, ra) in zip(got, pairs):
+        want = ra.evaluate_for_rotation([RefFp(v, REF_FR) for v in point], ref_ex.Rotation(rotation))
+        assert [int(v) for v in values] == [int(v) for v in want]
+
+
 def test_eq_xy_and_identity():
     y = _ints(5, 6)
     ours = ml.eq_xy(BN254_FR, [Fp(v, BN254_FR) for v in y], "cpu")

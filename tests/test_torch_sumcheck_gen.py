@@ -143,3 +143,75 @@ def test_decider_tapes_through_generated_twin(system, circuit, field):
                                         t.num_regs, t.out_reg, state.degree, ids)
         assert torch.equal(got, want), f"round {round_}"
         state.next_round(Fp(5, spec), Fp(1000 + round_, spec))
+
+
+def _benchmark_circuit_expression(pkg, name):
+    """The zero-check expression (compose) of a benchmark circuit of package
+    `pkg`: the aggregation ladder at k = 4 or one sha256 block at k = 8 (the
+    expression does not depend on k or the witness)."""
+    import importlib
+
+    spec = importlib.import_module(f"{pkg}.fields.spec").BN254_FR
+    compose = importlib.import_module(f"{pkg}.backend.hyperplonk.preprocessor").compose
+    if name == "aggregation":
+        info, _ = importlib.import_module(f"{pkg}.models.aggregation").rand_aggregation_circuit(
+            spec, 4, random.Random(1), random.Random(2))
+    else:
+        info, _, _ = importlib.import_module(f"{pkg}.models.sha256").sha256_circuit(b"abc")
+    return compose(info)[1]
+
+
+@pytest.mark.parametrize("name", ["aggregation", "sha256"])
+def test_benchmark_circuit_zero_checks_through_generated_twin(name):
+    """The zero-check tapes of the aggregation and sha256 circuits through the
+    generated source built with g++: every round of a k = 4 zero-check on
+    random tables equals the reference's EvaluationsProver on cpp, the plain
+    fold between rounds."""
+    num_vars = 4  # sha256 rotates by up to 4 rows
+    challenges = _ints(3, 400)
+    expr = _benchmark_circuit_expression("plonkish_tpu_torch", name)
+    rexpr = _benchmark_circuit_expression("plonkish_tpu", name)
+    num_polys = 1 + max(q.poly for q in expr.used_query())
+    polys = [MLPoly.from_ints(BN254_FR, _ints(1 << num_vars, 60 + i), "cpu")
+             for i in range(num_polys)]
+    refs = [RefMLPoly.from_ints(REF_FR, _ints(1 << num_vars, 60 + i)) for i in range(num_polys)]
+    y = _ints(num_vars, 450)
+    state = sc.ProverState(BN254_FR, num_vars, Fp.zero(BN254_FR), sc.VirtualPolynomial(
+        expr, polys, [Fp(c, BN254_FR) for c in challenges], [[Fp(v, BN254_FR) for v in y]]))
+    prover = sc.EvaluationsProver(state)
+    rstate = ref_sc.ProverState(REF_FR, num_vars, RefFp.zero(REF_FR), ref_sc.VirtualPolynomial(
+        rexpr, refs, [RefFp(c, REF_FR) for c in challenges], [[RefFp(v, REF_FR) for v in y]]))
+    rprover = ref_sc.EvaluationsProver(rstate)
+    try:
+        kern = sumcheck_gen.twin(*_tape_args(state, prover))
+    except FileNotFoundError as e:
+        pytest.skip(f"no host C++ compiler: {e}")
+    rng = random.Random(num_vars)
+    for round_ in range(num_vars):
+        ids = sc.identity_params(BN254_FR, state.round, state.identity_offset, "cpu")
+        sums = ksc.round_launch(kern, None, state.stacked, prover.consts, state.degree, ids)
+        got = [int(v) for v in limb.to_canonical_ints(BN254_FR, sums)]
+        want = [int(v) for v in rprover.prove_round(rstate).values]
+        assert got == want[1:], f"round {round_}"
+        ch = rng.randrange(P)
+        state.next_round(Fp(5, BN254_FR), Fp(ch, BN254_FR))
+        rstate.next_round(RefFp(5, REF_FR), RefFp(ch, REF_FR))
+
+
+def test_wide_tapes_keep_their_registers_in_a_local_array():
+    """A tape of more than REGFILE_ABOVE registers (the sha256 zero-check's
+    185) is written over a local register file; a narrow one over named
+    locals."""
+    expr = _benchmark_circuit_expression("plonkish_tpu_torch", "sha256")
+    num_vars = 4
+    polys = [MLPoly.from_ints(BN254_FR, _ints(1 << num_vars, i), "cpu")
+             for i in range(1 + max(q.poly for q in expr.used_query()))]
+    state = sc.ProverState(BN254_FR, num_vars, Fp.zero(BN254_FR), sc.VirtualPolynomial(
+        expr, polys, [Fp(c, BN254_FR) for c in _ints(3, 7)],
+        [[Fp(v, BN254_FR) for v in _ints(num_vars, 8)]]))
+    prover = sc.EvaluationsProver(state)
+    assert prover.tape.num_regs > sumcheck_gen.REGFILE_ABOVE
+    src = sumcheck_gen.source(*_tape_args(state, prover))
+    assert f"Fe file[{prover.tape.num_regs}];" in src and "sc_regfile(file)" in src
+    narrow_state, narrow = _prover("vanilla", 3, 20, _ints(3, 3))
+    assert "sc_regfile" not in sumcheck_gen.source(*_tape_args(narrow_state, narrow))

@@ -17,7 +17,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    of the two vanilla circuits; over Fq: vanilla PLONK, vanilla PLONK with
    lookups and Protostar's vanilla decider, the IPA path's), with each one's
    ptxas line and build seconds; the vanilla and lookup kernels must have a
-   0-byte stack frame and no spills; print the card;
+   0-byte stack frame and no spills; print the card.  The two sha256 tapes
+   take about two minutes each: they build in a thread of their own through
+   phases 2 and 3, and are printed and held against their plain version
+   (as phase 2 holds the others) once they are built, before phase 4;
 2. every kernel against its plain PyTorch version on the card, on the same
    inputs, exact equality required (MSM K1+K2 on BN254 at 2^12 points with
    edge cases, at 2^16 random points and at 2^16 selector-like scalars in
@@ -48,7 +51,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    at 2^20 points of the IPA basis, K3 and K4 over Fq at the k = 20 shapes
    and the IPA base fold at 2^19 points;
 6. the bench harness in process (plonkish_tpu_torch.benchmark): the
-   zero_check and pcs kzg systems at k = 20, whose rows are read back from
+   zero_check system at k = 18 (20 until phase 11 came) and the pcs kzg
+   system at k = 20, whose rows are read back from
    target/bench_torch/, with the launch counts of the five kernels of that
    path;
 7. HyperPlonk over BN254 Fq with the multilinear IPA on Grumpkin on a random
@@ -56,9 +60,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    to the curve on the card), preprocess, a warm-up prove, a timed prove
    with its span breakdown and launch counts (K1 and K2 on Grumpkin, K3 and
    K4 over Fq, the IPA base fold), verify, and a flipped byte rejected; then
-   the harness's pcs system at k = 18 for gemini, zeromorph, hyrax,
-   brakedown and ipa, with the rows read back (k = 20 until phase 8 came:
-   PERF.md keeps those rows);
+   the harness's pcs system at k = 16 for gemini, zeromorph, hyrax,
+   brakedown and ipa, with the rows read back (k = 20 until phase 8 came,
+   18 until the script ran past its time on a slower host: PERF.md keeps
+   those rows);
 8. folding at full size: Protostar over BN254 with multilinear KZG on the
    random vanilla-PLONK circuit of phase 4 at k = 20: setup, preprocess, then
    timed, two folds (the circuit of phase 4 and one with another witness)
@@ -66,7 +71,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    decider's ms, the span breakdown, the peak device memory and the launches
    of K1-K4 in that region (each must launch, and no K3 may be built there);
    the decider verified and a flipped byte rejected; then the harness's
-   sangria system at k = 20 in process, its fold and decider rows read back;
+   sangria system at k = 16 in process (20 until phase 11 came, then 18),
+   its fold and decider rows read back;
 9. univariate (halo2-style) PLONK over BN254 with the univariate KZG on the
    circuit of phase 4 at k = 20: setup (4 * 2^20 powers), preprocess with its
    spans, a warm-up prove, a timed prove with its spans, peak device memory
@@ -80,7 +86,20 @@ Phases, each printed on its own line; any failure exits non-zero:
    about 220 s before any prove), each synthesised, preprocessed, proved
    (warm-up, then timed with spans, peak and K1-K4 launches, no K3 built),
    verified and a flipped byte rejected; then the harness's hyperplonk rows
-   of aggregation at k = 18 and sha256 at k = 14.
+   of aggregation at k = 18 and sha256 at k = 14.  Phase 11 (b)'s ranks
+   start with this phase and set up beside the aggregation synthesis;
+   nothing here touches the card again before they are set up;
+11. the sharded prover (plonkish_tpu_torch.parallel) on phase 4's circuit at
+   k = 20: (a) in this process under a one-rank NCCL mesh, a warm-up prove
+   and a timed prove with its spans, launches and collectives, whose proof
+   must equal phase 4's byte for byte; (b) two ranks sharing the card over
+   gloo, each its own process that reads phase 4's SRS back from
+   target/srs_cache_torch/, synthesises the circuit, preprocesses and
+   proves a warm-up (all while phase 10 runs), then waits for (a) to end
+   before its timed prove: each rank's proof must equal phase 4's,
+   each must launch K1-K4 on its rows and take sharded_msm; each rank's
+   prove time, collectives, bytes and peak device memory are printed (one
+   card, so no scaling is claimed: the two ranks share it).
 
 The last three lines of standard output are the kernels JSON line, the card
 as nvidia-smi reports it, and the result line.  The script imports no JAX
@@ -97,7 +116,12 @@ import threading
 import time
 
 K_FULL = 20
-K_PCS_ROWS = 18  # phase 7's harness rows, cut so that phase 8 fits the script's time
+# harness rows cut so that the script fits its time on a slow host: phase 7's
+# pcs rows from 20 to 18 (for phase 8), then to 16, phase 8's sangria row from
+# 20 to 18 (for phase 11), then to 16
+K_PCS_ROWS = 16
+K_SANGRIA_ROW = 16
+K_ZERO_CHECK_ROW = 18  # phase 6's zero_check row, cut from 20 for the same reason
 PROVER_KERNELS = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
 # the decider tapes of phase 8, the harness's sangria and the IPA path:
 # (name, scheme, circuit of models.circuits)
@@ -109,7 +133,8 @@ DECIDERS = (
 )
 IPA_KERNELS = PROVER_KERNELS + ("ipa_base_fold",)
 K_SHA256 = 16  # phase 10's sha256 circuit: 468 blocks (k = 20 would be 7,489)
-K_UNIVARIATE_ROW, K_AGGREGATION_ROW, K_SHA256_ROW = 16, 18, 14  # harness rows of 9 and 10
+# harness rows of 9 and 10
+K_UNIVARIATE_ROW, K_AGGREGATION_ROW, K_SHA256_ROW = 16, 18, 14
 # phase 10's zero-check tapes: (circuit, k).  The sha256 expression holds the
 # permutation's identity offsets i * 2^k, and where one equals a bit weight
 # 2^j of the gates the two constants share a row of the tape's constant
@@ -119,6 +144,9 @@ BENCH_TAPES = {
     f"sha256_k{K_SHA256}": ("sha256", K_SHA256),
     f"sha256_k{K_SHA256_ROW}": ("sha256", K_SHA256_ROW),
 }
+# the sha256 tapes take about two minutes each to build: they build in the
+# background through phases 2 and 3, and are checked before phase 4
+LATE_TAPES = tuple(name for name, (circuit, _) in BENCH_TAPES.items() if circuit == "sha256")
 NEW_PCS = ("gemini", "zeromorph", "hyrax", "brakedown", "ipa")
 
 
@@ -150,13 +178,15 @@ def main() -> int:
     # ---------------------------------------------------------------- 1 build
     t0 = time.time()
     built = {}
-    main_lib = threading.Thread(target=lambda: built.update(path=build.build_cuda()))
+    main_lib = threading.Thread(target=lambda: built.update(
+        path=build.build_cuda(), seconds=time.time() - t0))
     main_lib.start()
-    phase1_round_kernels(torch)
+    structures, late = phase1_round_kernels(torch)
     main_lib.join()
     if "path" not in built:
         fail("the kernel library did not build")
-    log(f"[build] {built['path'].name} in {time.time() - t0:.1f}s")
+    log(f"[build] {built['path'].name} in {built['seconds']:.1f}s; phase 1 done in "
+        f"{time.time() - t0:.1f}s, the sha256 tapes still building")
     for line in build.ptxas_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
@@ -170,9 +200,10 @@ def main() -> int:
         log(f"[phase {phase}] starts {time.time() - t_start:.1f}s into the script")
 
     at(2)
-    phase2_kernels(torch)
+    phase2_kernels(torch, structures)
     at(3)
     phase3_golden(torch, here)
+    late_round_kernels(torch, late, structures)
     at(4)
     main_path, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
     at(5)
@@ -187,7 +218,13 @@ def main() -> int:
     at(9)
     phase9_univariate(torch, K_FULL, LAUNCHES, reset_launches, shapes)
     at(10)
-    phase10_circuits(torch, K_FULL, LAUNCHES, reset_launches, shapes)
+    ranks = SharedCardRanks(K_FULL, shapes["srs_path"])
+    try:
+        phase10_circuits(torch, K_FULL, LAUNCHES, reset_launches, shapes, ranks)
+        at(11)
+        phase11_sharded(torch, K_FULL, LAUNCHES, reset_launches, shapes, ranks)
+    finally:
+        ranks.close()
     for row in kernels:  # each kernel's launches on the path that runs it
         if row["name"] == "mont_mul_chain":
             row["launches"] = harness_path["mont_mul_chain"]
@@ -337,13 +374,14 @@ def decider_state(torch, num_vars, gen, device, scheme, circuit, spec):
     return state, EvaluationsProver(state)
 
 
-def k3_cases(torch, num_vars, gen, device="cuda"):
+def k3_cases(torch, num_vars, gen, device="cuda", bench=tuple(BENCH_TAPES)):
     """K3's arguments (state, instrs, consts, num_regs, out_reg, degree) with
     the field, keyed (field name, expression), at 2^(num_vars - 1) pairs: the
-    four Fr expressions, the zero-checks of the aggregation circuit and of
-    sha256 at the two k it runs at, the four folding deciders over Fr, and
-    the vanilla and lookup ones and Protostar's vanilla decider over Fq;
-    with them the vanilla prover state over Fr."""
+    four Fr expressions, the zero-checks of the BENCH_TAPES named in `bench`
+    (the aggregation circuit and sha256 at the two k it runs at), the four
+    folding deciders over Fr, and the vanilla and lookup ones and
+    Protostar's vanilla decider over Fq; with them the vanilla prover state
+    over Fr."""
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
     from plonkish_tpu_torch.kernels import sumcheck_gen
@@ -364,12 +402,7 @@ def k3_cases(torch, num_vars, gen, device="cuda"):
                                         spec)
             if (spec, name) == (BN254_FR, "vanilla"):
                 vanilla = (state, prover)
-    for name in BENCH_TAPES:
-        state, prover = zero_check_state(torch, num_vars, gen, device, name)
-        cases[(BN254_FR.name, name)] = (state.stacked, prover.instrs, prover.consts,
-                                        prover.tape.num_regs, prover.tape.out_reg, state.degree,
-                                        BN254_FR)
-        del state, prover
+    cases.update(k3_bench_cases(torch, num_vars, gen, bench, device))
     for spec, deciders in ((BN254_FR, DECIDERS), (BN254_FQ, DECIDERS[:1])):
         for name, scheme, circuit in deciders:
             state, prover = decider_state(torch, num_vars, gen, device, scheme, circuit, spec)
@@ -388,6 +421,20 @@ def k3_cases(torch, num_vars, gen, device="cuda"):
                            tape.const_rows(BN254_FR, device), tape.num_regs, tape.out_reg,
                            expr.degree(), BN254_FR)
     return cases, vanilla
+
+
+def k3_bench_cases(torch, num_vars, gen, names, device="cuda"):
+    """The cases of k3_cases for the BENCH_TAPES in `names`."""
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+
+    cases = {}
+    for name in names:
+        state, prover = zero_check_state(torch, num_vars, gen, device, name)
+        cases[(BN254_FR.name, name)] = (state.stacked, prover.instrs, prover.consts,
+                                        prover.tape.num_regs, prover.tape.out_reg, state.degree,
+                                        BN254_FR)
+        del state, prover
+    return cases
 
 
 def tape_of(case):
@@ -467,14 +514,51 @@ def msm_without_sync(torch, curve, scalars, bases):
 
 def phase1_round_kernels(torch):
     """K3 generated and built for every expression this script runs, one nvcc
-    each, all started together (and beside the library's own builds).  The
-    tapes come from small states on the CPU: a kernel depends on the tape's
-    structure, not on the size or the constants' values."""
+    each, all started together (and beside the library's own builds); the
+    LATE_TAPES are started once the others are built and go on building in
+    a thread of their own.  The tapes come from small states on the CPU: a
+    kernel depends on the tape's structure, not on the size or the
+    constants' values.  Returns each tape's structure, keyed as k3_cases,
+    and the late builds' (thread, cases, result)."""
     from plonkish_tpu_torch.kernels import sumcheck_gen
-    from plonkish_tpu_torch.piop.tape import OP_MUL
 
     cases, _ = k3_cases(torch, 4, torch.Generator().manual_seed(3), "cpu")
-    kernels = sumcheck_gen.prebuild([tape_of(case) for case in cases.values()])
+    structures = {key: sumcheck_gen.structure(*tape_of(case)) for key, case in cases.items()}
+    early = {key: case for key, case in cases.items() if key[1] not in LATE_TAPES}
+    log_round_builds(early, sumcheck_gen.prebuild([tape_of(case) for case in early.values()]))
+    late = {key: case for key, case in cases.items() if key[1] in LATE_TAPES}
+    result = {}
+
+    def build_late():
+        try:
+            result["kernels"] = sumcheck_gen.prebuild([tape_of(case) for case in late.values()])
+        except Exception as e:  # noqa: BLE001 - reported where the script waits for it
+            result["error"] = e
+
+    thread = threading.Thread(target=build_late, name="late K3 builds")
+    thread.start()
+    return structures, (thread, late, result)
+
+
+def late_round_kernels(torch, late, structures):
+    """Wait for the LATE_TAPES' builds, print them as phase 1 prints its own,
+    and hold each against its plain version as phase 2 holds the others."""
+    thread, cases, result = late
+    t0 = time.time()
+    thread.join()
+    if "error" in result:
+        fail(f"a K3 kernel of the sha256 tapes did not build: {result['error']}")
+    log(f"[build] waited {time.time() - t0:.1f}s for the sha256 tapes")
+    log_round_builds(cases, result["kernels"])
+    gen = torch.Generator().manual_seed(4)
+    check_round_kernels(torch, k3_bench_cases(torch, 17, gen, LATE_TAPES), structures)
+
+
+def log_round_builds(cases, kernels):
+    """Each K3 build's line; the vanilla and lookup kernels must keep every
+    register in a register."""
+    from plonkish_tpu_torch.piop.tape import OP_MUL
+
     for (field, name), kern in zip(cases, kernels):
         instrs, num_regs, _, tables, degree, _ = tape_of(cases[(field, name)])
         log(f"[build] K3 {name} over {field}: {len(instrs)} instructions, "
@@ -488,9 +572,35 @@ def phase1_round_kernels(torch):
             fail(f"K3 {name} over {field}: ptxas reports a stack frame or spills: {kern.ptxas}")
 
 
+def check_round_kernels(torch, cases, structures):
+    """K3 against its plain version for each case of k3_cases, at all its
+    pairs and at one pair; each tape must be the one phase 1 built for the
+    same expression's small state on the CPU."""
+    from plonkish_tpu_torch.fields.host import Fp
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.kernels import sumcheck_gen
+    from plonkish_tpu_torch.piop.sum_check import identity_params
+
+    for (field, name), case in cases.items():
+        if sumcheck_gen.structure(*tape_of(case)) != structures[(field, name)]:
+            fail(f"K3: the {name} state on the card over {field} needs another kernel than the "
+                 "same expression's small state on the CPU")
+        stacked, instrs, consts, num_regs, out_reg, degree, spec = case
+        ids = identity_params(spec, 0, Fp.zero(spec), "cuda")  # round 0's offset is zero
+        for part in (stacked, stacked[:, :2].contiguous()):
+            args = (part, instrs, consts, num_regs, out_reg, degree, ids)
+            if not torch.equal(ksc.sumcheck_round_cuda(spec, *args),
+                               ksc.sumcheck_round_plain(spec, *args)):
+                fail(f"K3 sumcheck_round differs from its plain version ({name} expression "
+                     f"over {field}, {part.shape[1] // 2} pairs)")
+        log(f"[kernels] K3 round, {name} expression over {field}, {stacked.shape[0]} tables, "
+            f"degree {degree}, {len(instrs)} instructions: 0 mismatches at "
+            f"{stacked.shape[1] // 2} pairs and at 1 pair")
+
+
 # ------------------------------------------------------ 2 kernels vs plain
 
-def phase2_kernels(torch):
+def phase2_kernels(torch, structures):
     from plonkish_tpu_torch.curves import device as cdev
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.curves.specs import BN254_G1, GRUMPKIN_G1
@@ -500,8 +610,6 @@ def phase2_kernels(torch):
     from plonkish_tpu_torch.kernels import msm as kmsm
     from plonkish_tpu_torch.kernels import probe as kprobe
     from plonkish_tpu_torch.kernels import sumcheck as ksc
-    from plonkish_tpu_torch.kernels import sumcheck_gen
-    from plonkish_tpu_torch.piop.sum_check import identity_params
 
     gen = torch.Generator().manual_seed(1)
     for n, kind, msm_curve in ((1 << 12, "edge", BN254_G1), (1 << 16, "random", BN254_G1),
@@ -538,22 +646,9 @@ def phase2_kernels(torch):
             f"{len(kmsm.bucket_level_sizes(keys.numel()))} K1 levels, 0 mismatches{note} "
             f"({time.time() - t0:.1f}s)")
 
-    kernels_before = len(sumcheck_gen.BUILDS)
-    cases, (state, _) = k3_cases(torch, 17, gen)
-    for (field, name), (stacked, instrs, consts, num_regs, out_reg, degree, spec) in cases.items():
-        ids = identity_params(spec, 0, state.identity_offset, "cuda")
-        for part in (stacked, stacked[:, :2].contiguous()):
-            args = (part, instrs, consts, num_regs, out_reg, degree, ids)
-            if not torch.equal(ksc.sumcheck_round_cuda(spec, *args),
-                               ksc.sumcheck_round_plain(spec, *args)):
-                fail(f"K3 sumcheck_round differs from its plain version ({name} expression "
-                     f"over {field}, {part.shape[1] // 2} pairs)")
-        log(f"[kernels] K3 round, {name} expression over {field}, {stacked.shape[0]} tables, "
-            f"degree {degree}, {len(instrs)} instructions: 0 mismatches at "
-            f"{stacked.shape[1] // 2} pairs and at 1 pair")
-    if len(sumcheck_gen.BUILDS) != kernels_before:
-        fail("K3: a state on the card needed another kernel than the same expression's small "
-             "state on the CPU")
+    cases, (state, _) = k3_cases(torch, 17, gen,
+                                 bench=[n for n in BENCH_TAPES if n not in LATE_TAPES])
+    check_round_kernels(torch, cases, structures)
     for spec, stacked in ((BN254_FR, state.stacked),
                           (BN254_FQ, cases[(BN254_FQ.name, "vanilla")][0])):
         ch = limb.const(spec, 0x1234567890ABCDEF, "cuda")
@@ -667,6 +762,7 @@ def phase3_golden(torch, here):
 # ------------------------------------------------------ 4 full size
 
 def phase4_full(torch, k, launches, reset_launches):
+    from plonkish_tpu_torch import benchmark
     from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
     from plonkish_tpu_torch.fields.spec import BN254_FR
     from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
@@ -686,14 +782,20 @@ def phase4_full(torch, k, launches, reset_launches):
     pp, vp = backend.preprocess(param, ci)
     torch.cuda.synchronize()
     times["preprocess"] = time.time() - t0
+    t0 = time.time()
+    srs_path = benchmark.srs_cache_path(k, 0)
+    benchmark.save_srs(srs_path, param)  # phase 11's ranks read it back
+    times["srs_write"] = time.time() - t0
     log(f"[k={k}] circuit {times['circuit']:.2f}s, setup {times['setup']:.2f}s, "
-        f"preprocess {times['preprocess']:.2f}s")
+        f"preprocess {times['preprocess']:.2f}s, SRS written to {srs_path} in "
+        f"{times['srs_write']:.2f}s")
 
-    times["prove"], main_path = prove_and_check(
+    times["prove"], main_path, proof = prove_and_check(
         torch, f"k={k}", backend, pp, vp, circuit, BN254_FR, launches, reset_launches,
         must=PROVER_KERNELS)
     log(f"[k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
-    return main_path, {"pp": pp, "k": k, "circuit": (ci, circuit), "param": param}
+    return main_path, {"pp": pp, "vp": vp, "k": k, "circuit": (ci, circuit), "param": param,
+                       "proof": proof, "prove_s": times["prove"], "srs_path": srs_path}
 
 
 # ------------------------------------------------------ 5 kernel timing
@@ -724,15 +826,18 @@ def phase5_timing(torch, shapes, main_path):
     live = keys[:m]
     unique = int((live[1:] != live[:-1]).sum()) + 1 if m else 0
     k1_ms = cuda_ms(torch, lambda: kmsm.msm_bucket_sums_cuda(curve, bases, keys, src, w * nb), 3)
-    k1_plain_ms = cuda_ms(torch, lambda: kmsm.msm_bucket_sums_plain(curve, bases, keys, src, w * nb), 1)
     buckets = kmsm.msm_bucket_sums_cuda(curve, bases, keys, src, w * nb)
-    k1_err = 0 if affine_equal(torch, curve, buckets, kmsm.msm_bucket_sums_plain(
-        curve, bases, keys, src, w * nb)) else 1
+    # each plain version runs once, timed, and its result is the one compared
+    k1_plain_ms, k1_plain = timed_once(
+        torch, lambda: kmsm.msm_bucket_sums_plain(curve, bases, keys, src, w * nb))
+    k1_err = 0 if affine_equal(torch, curve, buckets, k1_plain) else 1
+    del k1_plain
     buckets = buckets.reshape(w, nb, 3, 8)
     k2_ms = cuda_ms(torch, lambda: kmsm.msm_window_sums_cuda(curve, buckets, c), 3)
-    k2_plain_ms = cuda_ms(torch, lambda: kmsm.msm_window_sums_plain(curve, buckets, c), 1)
+    k2_plain_ms, k2_plain = timed_once(
+        torch, lambda: kmsm.msm_window_sums_plain(curve, buckets, c))
     k2_err = 0 if affine_equal(torch, curve, kmsm.msm_window_sums_cuda(curve, buckets, c)[None],
-                               kmsm.msm_window_sums_plain(curve, buckets, c)[None]) else 1
+                               k2_plain[None]) else 1
     log(f"[timing] MSM 2^{k}: c={c}, {w} windows, {keys.numel()} entries of which {m} "
         f"live, {unique} buckets used, K1 levels {kmsm.bucket_level_sizes(keys.numel())}")
     sel = selector_scalars(torch, curve.scalar, n, gen)
@@ -757,14 +862,13 @@ def phase5_timing(torch, shapes, main_path):
     args = (state.stacked, prover.instrs, prover.consts, prover.tape.num_regs,
             prover.tape.out_reg, state.degree, ids)
     k3_ms = cuda_ms(torch, lambda: ksc.sumcheck_round_cuda(BN254_FR, *args), 3)
-    k3_plain_ms = cuda_ms(torch, lambda: ksc.sumcheck_round_plain(BN254_FR, *args), 1)
-    k3_err = 0 if torch.equal(ksc.sumcheck_round_cuda(BN254_FR, *args),
-                              ksc.sumcheck_round_plain(BN254_FR, *args)) else 1
+    k3_plain_ms, k3_plain = timed_once(torch, lambda: ksc.sumcheck_round_plain(BN254_FR, *args))
+    k3_err = 0 if torch.equal(ksc.sumcheck_round_cuda(BN254_FR, *args), k3_plain) else 1
     ch = limb.const(BN254_FR, 0x1234567890ABCDEF, "cuda")
     k4_ms = cuda_ms(torch, lambda: ksc.fold_cuda(BN254_FR, state.stacked, ch), 10)
-    k4_plain_ms = cuda_ms(torch, lambda: ksc.fold_plain(BN254_FR, state.stacked, ch), 1)
-    k4_err = 0 if torch.equal(ksc.fold_cuda(BN254_FR, state.stacked, ch),
-                              ksc.fold_plain(BN254_FR, state.stacked, ch)) else 1
+    k4_plain_ms, k4_plain = timed_once(torch, lambda: ksc.fold_plain(BN254_FR, state.stacked, ch))
+    k4_err = 0 if torch.equal(ksc.fold_cuda(BN254_FR, state.stacked, ch), k4_plain) else 1
+    del k4_plain
     t_count, rows, _ = state.stacked.shape
     pairs = rows // 2
     n_mul = int((prover.instrs[:, 0] == OP_MUL).sum())
@@ -787,9 +891,8 @@ def phase5_timing(torch, shapes, main_path):
     k5_out = kprobe.mont_mul_chain_cuda(BN254_FR, pa, pb, pchain, "u32",
                                         best["per_thread"], best["threads"])
     k5_f32 = kprobe.mont_mul_chain_cuda(BN254_FR, pa, pb, pchain, "f32")
-    k5_plain_ms = cuda_ms(
-        torch, lambda: kprobe.mont_mul_chain_plain(BN254_FR, pa, pb, pchain, "u32"), 1)
-    k5_plain = kprobe.mont_mul_chain_plain(BN254_FR, pa, pb, pchain, "u32")
+    k5_plain_ms, k5_plain = timed_once(
+        torch, lambda: kprobe.mont_mul_chain_plain(BN254_FR, pa, pb, pchain, "u32"))
     k5_err = 0 if torch.equal(k5_out, k5_plain) and torch.equal(k5_f32, k5_plain) else 1
     k5_ms, k5_f32_ms = best["ms"], peaks["best"]["f32"]["ms"]
     rate, source = roofline.imad_rate(peaks)
@@ -974,34 +1077,35 @@ def timing_new_instantiations(torch, k, gen, peaks):
 # ------------------------------------------------------ 6 bench harness
 
 def phase6_harness(k, launches, reset_launches):
-    """The harness path at full width, in process: the zero_check and pcs
-    systems at k, one timed sample each after the harness's own warm-up."""
+    """The harness path in process: the zero_check system at
+    K_ZERO_CHECK_ROW and the pcs system at k, one timed sample each after the
+    harness's own warm-up."""
     from plonkish_tpu_torch import benchmark
 
     runs = (
-        ("zero_check", ["--system", "zero_check"], 2),
-        ("pcs_kzg", ["--system", "pcs", "--pcs", "kzg"], 3),
+        ("zero_check", ["--system", "zero_check"], 2, K_ZERO_CHECK_ROW),
+        ("pcs_kzg", ["--system", "pcs", "--pcs", "kzg"], 3, k),
     )
     sizes = {}
-    for name, _, _ in runs:
+    for name, _, _, _ in runs:
         path = os.path.join(benchmark.BENCH_DIR, name)
         sizes[name] = os.path.getsize(path) if os.path.exists(path) else 0
     reset_launches()
-    for name, argv, _ in runs:
+    for name, argv, _, kk in runs:
         t0 = time.time()
-        benchmark.main([*argv, "--k", f"{k}..{k + 1}", "--samples", "1"])
-        log(f"[harness] {name} k={k}: {time.time() - t0:.1f}s")
+        benchmark.main([*argv, "--k", f"{kk}..{kk + 1}", "--samples", "1"])
+        log(f"[harness] {name} k={kk}: {time.time() - t0:.1f}s")
     harness_path = dict(launches)
     log(f"[harness] kernel launches on the harness path: {json.dumps(harness_path)}")
-    for name, _, columns in runs:
+    for name, _, columns, kk in runs:
         with open(os.path.join(benchmark.BENCH_DIR, name)) as fh:
             fh.seek(sizes[name])
             added = fh.read().splitlines()
         if any(line.startswith("# FAILED") for line in added):
             fail(f"the harness wrote a FAILED row to {name}: {added}")
         rows = [line.split(",") for line in added if not line.startswith("#")]
-        if len(rows) != 1 or len(rows[0]) != columns or int(rows[0][0]) != k:
-            fail(f"the harness row of {name} at k={k} is missing: {added}")
+        if len(rows) != 1 or len(rows[0]) != columns or int(rows[0][0]) != kk:
+            fail(f"the harness row of {name} at k={kk} is missing: {added}")
         if not all(float(v) > 0 for v in rows[0][1:]):
             fail(f"the harness row of {name} holds no time: {added}")
         log(f"[harness] {name} row: {','.join(rows[0])} ms")
@@ -1040,7 +1144,7 @@ def phase7_ipa(torch, k, launches, reset_launches):
     log(f"[ipa k={k}] circuit {times['circuit']:.2f}s, setup {times['setup']:.2f}s (the "
         f"basis kept from phase 5), preprocess {times['preprocess']:.2f}s")
 
-    times["prove"], ipa_path = prove_and_check(
+    times["prove"], ipa_path, _ = prove_and_check(
         torch, f"ipa k={k}", backend, pp, vp, circuit, spec, launches, reset_launches,
         must=IPA_KERNELS)
     log(f"[ipa k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
@@ -1060,7 +1164,7 @@ def phase7_harness(k, launches, reset_launches):
 def phase8_folding(torch, k, launches, reset_launches, shapes):
     """Protostar with multilinear KZG at k on phase 4's circuit structure: two
     timed folds and the decider with the last NARK, then the harness's
-    sangria system at k."""
+    sangria system at K_SANGRIA_ROW."""
     from plonkish_tpu_torch import benchmark
     from plonkish_tpu_torch.accumulation.protostar import Protostar
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -1156,6 +1260,7 @@ def phase8_folding(torch, k, launches, reset_launches, shapes):
     kernels_before = len(sumcheck_gen.BUILDS)
     reset_launches()
     t0 = time.time()
+    k = K_SANGRIA_ROW
     benchmark.main(["--system", name, "--k", f"{k}..{k + 1}", "--samples", "1"])
     built = len(sumcheck_gen.BUILDS) - kernels_before
     log(f"[harness] {name} k={k}: {time.time() - t0:.1f}s; kernel launches "
@@ -1179,11 +1284,12 @@ def phase8_folding(torch, k, launches, reset_launches, shapes):
 # ------------------------------------------------------ shared by 9 and 10
 
 def prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_launches,
-                    must, must_not=()):
+                    must, must_not=(), mesh=None):
     """A warm-up prove, then a timed prove with its spans, peak device memory
     and kernel launches (each of `must` launched, none of `must_not`, no K3
-    built or loaded in the timed prove), the verifier accepting and a flipped
-    byte rejected.  Returns (prove seconds, launches)."""
+    built or loaded in the timed prove), and, under `mesh`, the collectives
+    of the timed prove; the verifier accepting and a flipped byte rejected.
+    Returns (prove seconds, launches, proof)."""
     from plonkish_tpu_torch.kernels import sumcheck_gen
     from plonkish_tpu_torch.utils import timer
     from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
@@ -1200,6 +1306,8 @@ def prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_
     timer.set_enabled(True)
     timer.reset_trace()
     reset_launches()
+    if mesh is not None:
+        mesh.reset_stats()
     torch.cuda.reset_peak_memory_stats()
     tr = Keccak256Transcript(spec)
     torch.cuda.synchronize()
@@ -1208,6 +1316,9 @@ def prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_
     torch.cuda.synchronize()
     prove_s = time.time() - t0
     path = dict(launches)
+    if mesh is not None:
+        log(f"[{tag}] rank {mesh.rank} of {mesh.world} over {mesh.backend}: {mesh.collectives} "
+            f"collectives, {mesh.bytes} bytes put in, sharded sites {json.dumps(dict(mesh.taken))}")
     timer.set_enabled(False)
     peak = torch.cuda.max_memory_allocated()
     proof = tr.into_proof()
@@ -1241,7 +1352,7 @@ def prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_
     else:
         fail(f"[{tag}] a proof with a flipped byte was accepted")
     log(f"[{tag}] verify {verify_s:.2f}s; flipped byte rejected")
-    return prove_s, path
+    return prove_s, path, proof
 
 
 def harness_row(argv, name, k, columns, launches, reset_launches):
@@ -1288,7 +1399,7 @@ def phase9_univariate(torch, k, launches, reset_launches, shapes):
 
     spec = BN254_FR
     tag = f"univariate k={k}"
-    ci, circuit = shapes.pop("circuit")
+    ci, circuit = shapes["circuit"]  # phase 11 proves it again
     backend = UnivariatePlonk(UnivariateKzg())
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1326,12 +1437,14 @@ def phase9_univariate(torch, k, launches, reset_launches, shapes):
 
 # ------------------------------------------------------ 10 benchmark circuits
 
-def phase10_circuits(torch, k, launches, reset_launches, shapes):
+def phase10_circuits(torch, k, launches, reset_launches, shapes, ranks):
     """HyperPlonk over BN254 with multilinear KZG on the harness's circuits:
     the aggregation ladder at k (phase 4's SRS) and sha256 at K_SHA256, each
     synthesised, preprocessed, proved (warm-up, then timed with spans, peak
     and K1-K4 launches), verified and a flipped byte rejected; then the
-    harness's hyperplonk rows of both circuits at smaller k."""
+    harness's hyperplonk rows of both circuits at smaller k.  The first
+    synthesis runs beside the set-up of phase 11's ranks (`ranks`), which
+    are waited for before anything here touches the card again."""
     from plonkish_tpu_torch import benchmark
     from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -1344,6 +1457,8 @@ def phase10_circuits(torch, k, launches, reset_launches, shapes):
         info, circuit = benchmark._circuit_fn(name)(spec, kk, random.Random(42),
                                                     random.Random(4242))
         synth_s = time.time() - t0
+        if not ranks.is_ready():
+            log(f"[{tag}] waited {ranks.wait_ready():.1f}s for phase 11's ranks to be set up")
         backend = HyperPlonk(MultilinearKzg())
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1365,6 +1480,176 @@ def phase10_circuits(torch, k, launches, reset_launches, shapes):
     for name, kk in (("aggregation", K_AGGREGATION_ROW), ("sha256", K_SHA256_ROW)):
         harness_row(["--system", "hyperplonk", "--circuit", name], "hyperplonk", kk, 2,
                     launches, reset_launches)
+
+
+
+# ------------------------------------------------------ 11 sharded prover
+
+class SharedCardRanks:
+    """Phase 11 (b)'s two gloo ranks, started when phase 10 starts, so that
+    their set-up (circuit, SRS read, preprocess, warm-up prove) runs beside
+    phase 10's first synthesis.  Each rank then waits for `go` before its
+    timed prove: no timed region of phase 10 or of phase 11 (a) shares the
+    card with them.  `close` stops ranks still waiting (the script failed)."""
+
+    def __init__(self, k, srs_path):
+        import torch.multiprocessing as mp
+
+        from plonkish_tpu_torch import parallel
+
+        ctx = mp.get_context("spawn")
+        self.ready = [ctx.Event() for _ in range(2)]
+        self.go, self.stop = ctx.Event(), ctx.Event()
+        self.result = {}
+
+        def run():
+            try:
+                self.result["ranks"] = parallel.spawn(
+                    _phase11_rank, 2, "gloo", "cuda",
+                    args=(k, srs_path, self.ready, self.go, self.stop), deadline_s=900)
+            except Exception as e:  # noqa: BLE001 - a rank's failure fails the phase
+                self.result["error"] = e
+
+        self.thread = threading.Thread(target=run, name="phase 11 ranks")
+        self.thread.start()
+
+    def _failed(self):
+        e = self.result["error"]
+        fail(f"[mesh2 gloo] a rank failed: {type(e).__name__}: {e}")
+
+    def is_ready(self):
+        return all(e.is_set() for e in self.ready)
+
+    def wait_ready(self):
+        """Seconds waited until both ranks are set up; a rank's failure fails."""
+        t0 = time.time()
+        while not self.is_ready():
+            if not self.thread.is_alive():
+                self._failed()
+            time.sleep(0.1)
+        return time.time() - t0
+
+    def finish(self):
+        """Let the ranks prove; their results in rank order."""
+        self.go.set()
+        self.thread.join()
+        if "error" in self.result:
+            self._failed()
+        return self.result["ranks"]
+
+    def close(self):
+        self.stop.set()
+        self.thread.join()
+
+
+def phase11_sharded(torch, k, launches, reset_launches, shapes, ranks):
+    """The sharded prover at k on phase 4's circuit: (a) one NCCL rank in
+    this process, (b) two gloo ranks sharing the card (`ranks`, set up
+    since phase 10); every proof must equal phase 4's."""
+    from plonkish_tpu_torch import parallel
+    from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.parallel import sharded
+    from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+
+    want = shapes["proof"]
+    ci, circuit = shapes["circuit"]
+    # (a) one rank over NCCL: the collectives run, the MSM stays whole (the
+    # reference's rule splits it only over more than one rank)
+    t0 = time.time()
+    mesh = sharded.make_mesh("nccl")
+    try:
+        with parallel.use_mesh(mesh):
+            sharded.all_reduce_field(BN254_FR, mesh, limb.zeros((1,), mesh.device))
+            log(f"[mesh1 nccl] group of one rank on {mesh.device} up in {time.time() - t0:.2f}s")
+            prove_s, path, proof = prove_and_check(
+                torch, f"mesh1 nccl k={k}", HyperPlonk(MultilinearKzg()), shapes["pp"],
+                shapes["vp"], circuit, BN254_FR, launches, reset_launches,
+                must=PROVER_KERNELS, mesh=mesh)
+            if mesh.collectives <= 0 or mesh.taken["sum_check"] != 2:
+                fail(f"[mesh1 nccl] the prove did not go through the mesh: {dict(mesh.taken)}")
+    finally:
+        mesh.close()
+    if proof != want:
+        fail("[mesh1 nccl] the proof under a one-rank mesh differs from phase 4's")
+    log(f"[mesh1 nccl k={k}] proof equals phase 4's ({len(proof)} bytes); prove {prove_s:.3f}s "
+        f"against phase 4's {shapes['prove_s']:.3f}s unsharded")
+
+    # (b) two ranks on one card: gloo (NCCL refuses two ranks on one card)
+    t0 = time.time()
+    ranks.wait_ready()
+    results = ranks.finish()
+    log(f"[mesh2 gloo k={k}] two ranks' timed proves done in {time.time() - t0:.1f}s, card "
+        "shared (their set-up ran beside phase 10)")
+    for r in results:
+        tag = f"mesh2 gloo k={k} rank {r['rank']}"
+        log(f"[{tag}] circuit {r['circuit_s']:.2f}s, SRS read {r['srs_s']:.2f}s, preprocess "
+            f"{r['preprocess_s']:.2f}s, warm-up prove {r['warm_s']:.2f}s; prove {r['prove_s']:.3f}s "
+            f"(phase 4 unsharded {shapes['prove_s']:.3f}s; the other rank shares the card), "
+            f"peak device memory {r['peak'] / 2**30:.2f} GiB, {r['collectives']} collectives, "
+            f"{r['bytes']} bytes put in, sharded sites {json.dumps(r['taken'])}, kernel launches "
+            f"{json.dumps(r['launches'])}, K3 kernels built or loaded in the timed prove "
+            f"{r['k3_built']}")
+        if r["proof"] != want:
+            fail(f"[{tag}] the proof differs from phase 4's unsharded proof")
+        for name in PROVER_KERNELS:
+            if r["launches"][name] <= 0:
+                fail(f"[{tag}] kernel {name} was not launched on the rank's rows")
+        if r["taken"].get("msm", 0) <= 0 or r["taken"].get("sum_check") != 2:
+            fail(f"[{tag}] sharded_msm or the sharded sum-checks were not taken: {r['taken']}")
+    log(f"[mesh2 gloo k={k}] both ranks' proofs equal phase 4's ({len(want)} bytes)")
+
+
+def _phase11_rank(mesh, k, srs_path, ready, go, stop):
+    """One rank of phase 11 (b): phase 4's circuit and SRS, a warm-up prove,
+    then (`ready` set, `go` awaited; `stop` ends the rank) a timed one under
+    the mesh, with launches, collectives and peak."""
+    import torch
+
+    from plonkish_tpu_torch import benchmark
+    from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES, reset_launches, sumcheck_gen
+    from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+    from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    out = {"rank": mesh.rank}
+    t0 = time.time()
+    ci, circuit = rand_vanilla_plonk_circuit(BN254_FR, k, random.Random(1), random.Random(2))
+    out["circuit_s"] = time.time() - t0
+    t0 = time.time()
+    param = benchmark.load_srs(srs_path, mesh.device)
+    out["srs_s"] = time.time() - t0
+    backend = HyperPlonk(MultilinearKzg(device=mesh.device))
+    t0 = time.time()
+    pp, _ = backend.preprocess(param, ci)
+    torch.cuda.synchronize()
+    out["preprocess_s"] = time.time() - t0
+    del param
+    t0 = time.time()
+    backend.prove(pp, circuit, Keccak256Transcript(BN254_FR))
+    torch.cuda.synchronize()
+    out["warm_s"] = time.time() - t0
+    ready[mesh.rank].set()
+    while not go.wait(0.5):
+        if stop.is_set():
+            raise RuntimeError("stopped before the timed prove: the script failed")
+    built = len(sumcheck_gen.BUILDS)
+    reset_launches()
+    mesh.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Keccak256Transcript(BN254_FR)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    backend.prove(pp, circuit, tr)
+    torch.cuda.synchronize()
+    out["prove_s"] = time.time() - t0
+    out.update(proof=tr.into_proof(), launches=dict(LAUNCHES), collectives=mesh.collectives,
+               bytes=mesh.bytes, taken=dict(mesh.taken), peak=torch.cuda.max_memory_allocated(),
+               k3_built=len(sumcheck_gen.BUILDS) - built)
+    return out
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ Every O(2^k) phase is torch over the field layer on the polynomials' device:
 - permutation z: chunk products, one batch inversion, then the running
   product over the BH order as a log-depth prefix-product scan and one
   gather back to natural order (the reference's sequential running
-  product, prover.rs:307-323);
+  product, prover.rs:307-323); under a mesh the products and the inversion
+  run on this rank's block of rows, and the products are all-gathered
+  before the scan (the BH order crosses blocks), so the memory peaks at
+  the whole products' size on every rank;
 - zero-check: the sum-check of piop/sum_check.py (kernels K3 + K4).
 """
 
@@ -18,9 +21,11 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ... import parallel
 from ...fields import limb
 from ...fields.host import Fp
 from ...fields.spec import FieldSpec
+from ...parallel import sharded
 from ...piop.evaluator import evaluate_on_hypercube, identity_digits
 from ...piop.sum_check import ClassicSumCheck, VirtualPolynomial
 from ...poly.multilinear import MLPoly, evaluate_for_rotations
@@ -138,7 +143,10 @@ def permutation_z_polys(
 ) -> List[MLPoly]:
     """Grand-product z polynomials (prover.rs:252-345): per chunk
     prod(w_i + beta*id_i + gamma) / prod(w_i + beta*sigma_i + gamma), one
-    global batch inversion, then the running product over the BH order."""
+    global batch inversion, then the running product over the BH order.
+    Under a mesh the quotients are formed on this rank's block of rows
+    (reference prover.py:250-300 shards the σ and witness stacks) and then
+    gathered; the z polys come out whole on every rank."""
     if not permutation_polys:
         return []
     first = polys[permutation_polys[0][0]]
@@ -152,14 +160,19 @@ def permutation_z_polys(
     beta_c = limb.d_const(spec, int(beta), device)
     gamma_c = limb.d_const(spec, int(gamma), device)
     ident = identity_digits(spec, num_vars, device)
+    block = parallel.row_block(n)
+    lo, hi = (0, n) if block is None else (block.start, block.stop)
+    if block is not None:
+        block.mesh.taken["permutation_z"] += 1
+        ident = ident[:, lo:hi]
 
     numers, denoms = [], []
     for ch in range(nc):
         chunk = permutation_polys[ch * chunk_size: (ch + 1) * chunk_size]
         numer = denom = None
         for j, (poly_idx, perm_poly) in enumerate(chunk):
-            w = limb.unpack(polys[poly_idx].evals)
-            sigma = limb.unpack(perm_poly.evals)
+            w = limb.unpack(polys[poly_idx].evals[lo:hi])
+            sigma = limb.unpack(perm_poly.evals[lo:hi])
             d_term = limb.d_add(limb.d_add(limb.d_mul(sigma, beta_c, c), gamma_c, c), w, c)
             # id poly for column g: value g*2^k + b at row b
             g = ch * chunk_size + j
@@ -171,7 +184,11 @@ def permutation_z_polys(
         numers.append(numer)
         denoms.append(denom)
     denom_inv = limb.d_batch_inv(torch.cat(denoms, dim=1), spec)
-    products = limb.d_mul(torch.cat(numers, dim=1), denom_inv, c).reshape(limb.D, nc, n)
+    products = limb.d_mul(torch.cat(numers, dim=1), denom_inv, c)
+    if block is not None:
+        whole = sharded.all_gather_cat(block.mesh, limb.pack(products, (nc, hi - lo)), 1)
+        products = limb.unpack(whole)
+    products = products.reshape(limb.D, nc, n)
 
     bh = BooleanHypercube(num_vars)
     order = torch.as_tensor(bh.iter_array, device=device)  # nth -> b

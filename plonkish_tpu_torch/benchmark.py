@@ -175,6 +175,14 @@ def _main(argv=None) -> None:
         "kernel's plain version",
     )
     ap.add_argument("--samples", type=int, default=None)
+    ap.add_argument(
+        "--mesh", default=None, metavar="N1,N2,..",
+        help="zero_check: a scaling sweep, each k proved by a group of each "
+        "listed number of ranks (one process a rank, every rank timing its "
+        "prove; NCCL with a card a rank, else gloo); appends 'k, ranks, avg_ms, efficiency_pct' to "
+        f"{BENCH_DIR}/scaling: T1/(N*TN) with a card a rank, T1/TN where the "
+        "ranks share a card or the CPU (collective overhead only)",
+    )
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument(
         "--setup-only", action="store_true",
@@ -201,6 +209,14 @@ def _main(argv=None) -> None:
         ap.error(f"--system {args.system} folds commitments; brakedown cannot combine them")
     if args.system in ("zero_check", "univariate_plonk") and args.circuit != "vanilla_plonk":
         ap.error(f"--system {args.system} takes --circuit vanilla_plonk only")
+    args.mesh_sizes = None
+    if args.mesh:
+        if args.system != "zero_check":
+            ap.error("--mesh sweeps the zero_check system")
+        sizes = args.mesh.split(",")
+        if not all(v.isdigit() and int(v) >= 1 for v in sizes):
+            ap.error("--mesh takes rank counts of 1 or more")
+        args.mesh_sizes = sorted({int(v) for v in sizes})
 
     def sync():
         if on_card:
@@ -365,10 +381,7 @@ def _bench_zero_check(args, ks, device, sync, out_path) -> None:
     import torch
 
     from . import roofline
-    from .fields.host import Fp
     from .fields.spec import BN254_FR as spec
-    from .piop.sum_check import ClassicSumCheck
-    from .utils.transcript import Keccak256Transcript
 
     on_card = device.type == "cuda"
     for k in ks:
@@ -380,44 +393,28 @@ def _bench_zero_check(args, ks, device, sync, out_path) -> None:
         # minutes at large k.  Everything cached is deterministic (the seeds
         # are fixed above) and independent of the device.
         setup_cache = setup_cache_path(args.circuit, k)
+        if args.mesh_sizes:  # every rank reads the tables from the cache
+            if not os.path.exists(setup_cache):
+                _write_setup_cache(setup_cache, *zero_check_tables(
+                    spec, k, _circuit_fn(args.circuit), challenges, device))
+            _scaling_sweep(args, k, device, samples, setup_cache)
+            continue
         if os.path.exists(setup_cache) and not args.setup_only:
-            with open(setup_cache, "rb") as f:
-                blob = pickle.load(f)
-            expression = blob["expression"]
-            tables = [torch.from_numpy(t).to(device) for t in blob["tables"]]
+            expression, tables = _load_setup_cache(setup_cache, device)
             print(f"k={k}: setup loaded from {setup_cache}", flush=True)
         else:
             expression, tables = zero_check_tables(
                 spec, k, _circuit_fn(args.circuit), challenges, device
             )
         if args.setup_only:
-            os.makedirs(SETUP_CACHE_DIR, exist_ok=True)
-            with open(setup_cache, "wb") as f:
-                pickle.dump(
-                    {"expression": expression,
-                     "tables": [t.cpu().numpy() for t in tables]},
-                    f, protocol=5,
-                )
+            _write_setup_cache(setup_cache, expression, tables)
             print(f"k={k}: setup cached, skipping prove", flush=True)
             continue
         num_polys = len(tables)
 
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
-        times = []
-        for sample in range(samples + 1):  # the first is an untimed warm-up
-            sync()
-            t0 = time.perf_counter()
-            tr = zero_check_prove(spec, k, expression, tables, challenges, y)
-            sync()
-            times.append(time.perf_counter() - t0)
-            if sample == 0:
-                # self-check: the message chain must verify (a kernel
-                # regression fails the bench loudly)
-                ClassicSumCheck.evaluations().verify(
-                    spec, k, expression.degree(), Fp.zero(spec),
-                    Keccak256Transcript.from_proof(spec, tr.into_proof()),
-                )
+        times, _ = _timed_zero_checks(k, expression, tables, samples, sync)
         warm_ms = times[0] * 1e3
         times = times[1:]
         avg_ms = sum(times) / len(times) * 1e3
@@ -453,6 +450,114 @@ def _bench_zero_check(args, ks, device, sync, out_path) -> None:
             f"(warm-up {warm_ms:.0f} ms){pct_s}", flush=True
         )
         del tables
+
+
+def _write_setup_cache(path: str, expression, tables) -> None:
+    os.makedirs(SETUP_CACHE_DIR, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"expression": expression, "tables": [t.cpu().numpy() for t in tables]},
+                    f, protocol=5)
+
+
+def _load_setup_cache(path: str, device):
+    """(expression, tables on `device`) from a setup cache."""
+    import torch
+
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    return blob["expression"], [torch.from_numpy(t).to(device) for t in blob["tables"]]
+
+
+def _timed_zero_checks(k: int, expression, tables, samples: int, sync, mesh=None):
+    """An untimed warm-up prove, whose message chain must verify (a kernel
+    regression fails the bench loudly), then `samples` timed proves, each
+    between two `sync` calls.  Returns (the seconds of every prove, the
+    warm-up's first, the last proof).  Under a mesh its counters are reset
+    before each prove, so they hold the last one's."""
+    from .fields.host import Fp
+    from .fields.spec import BN254_FR as spec
+    from .piop.sum_check import ClassicSumCheck
+    from .utils.transcript import Keccak256Transcript
+
+    challenges, y = zero_check_challenges(spec, k)
+    times, proof = [], None
+    for sample in range(samples + 1):
+        if mesh is not None:
+            mesh.reset_stats()
+        sync()
+        t0 = time.perf_counter()
+        tr = zero_check_prove(spec, k, expression, tables, challenges, y)
+        sync()
+        times.append(time.perf_counter() - t0)
+        proof = tr.into_proof()
+        if sample == 0:
+            ClassicSumCheck.evaluations().verify(
+                spec, k, expression.degree(), Fp.zero(spec),
+                Keccak256Transcript.from_proof(spec, proof))
+    return times, proof
+
+
+def _zero_check_rank(mesh, k: int, samples: int, setup_cache: str):
+    """One rank of the scaling sweep: the zero-check tables from the setup
+    cache on this rank's device, then ``_timed_zero_checks`` under the
+    mesh.  Returns (the timed seconds, the proof, collectives and bytes of
+    one prove, the sharded sites)."""
+    import torch
+
+    dev = mesh.device
+    expression, tables = _load_setup_cache(setup_cache, dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    times, proof = _timed_zero_checks(k, expression, tables, samples, sync, mesh)
+    return times[1:], proof, mesh.collectives, mesh.bytes, dict(mesh.taken)
+
+
+def _scaling_sweep(args, k: int, device, samples: int, setup_cache: str) -> None:
+    """Prove the zero-check at k with a group of each size of ``--mesh``
+    (reference benchmark.py:836-890) and append ``k, ranks, avg_ms,
+    efficiency_pct`` rows to scaling.  avg_ms is the slowest rank's mean
+    over its timed proves.  With a card a rank the efficiency is
+    T1/(N*TN); where the ranks share a card, or the CPU, dividing by N
+    means nothing, and the row reports T1/TN, the collective overhead only
+    (the reference's convention for virtual devices).  Every rank's proof
+    must equal every other's, at every size."""
+    from . import parallel
+
+    mesh_sizes = args.mesh_sizes
+    backend = parallel.backend_for(max(mesh_sizes), device)
+    shared = backend == "gloo"  # the ranks share a card, or the CPU
+    where = "card" if device.type == "cuda" else "CPU"
+    metric = f"T1/TN (shared {where}, collective overhead only)" if shared else "T1/(N*TN)"
+    path = f"{BENCH_DIR}/scaling"
+    now = datetime.datetime.now(datetime.timezone.utc).isoformat(timespec="seconds")
+    header = (f"# run {now} system=zero_check k={k} backend={backend} "
+              f"device={args.device} metric={metric}\n")
+    base_ms, want = None, None
+    for nd in mesh_sizes:
+        _prog(f"k={k}: {nd} rank(s) over {backend}")
+        results = parallel.spawn(
+            _zero_check_rank, nd, backend, device, args=(k, samples, setup_cache),
+            threads=1 if device.type == "cpu" else None)
+        proofs = {r[1] for r in results}
+        want = want or results[0][1]
+        if proofs != {want}:
+            raise AssertionError(f"k={k}: the proofs of {nd} rank(s) differ")
+        avg_ms = max(sum(r[0]) / len(r[0]) for r in results) * 1e3
+        if base_ms is None:
+            base_ms = avg_ms if shared else avg_ms * nd
+        eff = base_ms / avg_ms if shared else base_ms / (nd * avg_ms)
+        with open(path, "a") as f:
+            if header is not None:
+                f.write(header)
+                header = None
+            f.write(f"{k}, {nd}, {avg_ms:.3f}, {100 * eff:.1f}\n")
+        _, _, collectives, sent, taken = results[0]
+        print(f"k={k} mesh={nd}: avg {avg_ms:.1f} ms, efficiency {100 * eff:.1f}% "
+              f"({metric}); {collectives} collectives, {sent} bytes a prove a rank; "
+              f"sharded sites {taken}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -838,6 +943,18 @@ def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
     setup is deterministic in (seed, size), `random.Random(seed)` drives the
     trapdoor draw, so caching is sound; the fixed-base MSM that builds the SRS
     runs in plain PyTorch and gates every measurement at large k."""
+    if pcs_name != "kzg":
+        return backend.setup(circuit_info, random.Random(seed))
+    path = srs_cache_path(k, seed)
+    if os.path.exists(path):
+        return load_srs(path, device)
+    param = backend.setup(circuit_info, random.Random(seed))
+    save_srs(path, param)
+    return param
+
+
+def load_srs(path: str, device):
+    """A multilinear KZG SRS written by ``save_srs``, its tables on `device`."""
     import numpy as np
     import torch
 
@@ -846,26 +963,26 @@ def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
     from .fields.host import Fp
     from .pcs.kzg import MultilinearKzgParams
 
-    if pcs_name != "kzg":
-        return backend.setup(circuit_info, random.Random(seed))
-    path = srs_cache_path(k, seed)
-    if os.path.exists(path):
-        with np.load(path) as z:
-            meta = json.loads(str(z["meta"]))
-            eqs = [torch.from_numpy(z[f"eq{i}"]).to(device)
-                   for i in range(meta["levels"])]
-        curve = BN254_G1
-        fq = curve.base
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta"]))
+        eqs = [torch.from_numpy(z[f"eq{i}"]).to(device) for i in range(meta["levels"])]
+    curve = BN254_G1
+    fq = curve.base
 
-        def pt(d):
-            return AffinePoint(curve, Fp(d[0], fq), Fp(d[1], fq))
+    def pt(d):
+        return AffinePoint(curve, Fp(d[0], fq), Fp(d[1], fq))
 
-        return MultilinearKzgParams(
-            g1=pt(meta["g1"]), eqs=eqs, g2=_g2_from(meta["g2"]),
-            ss=[_g2_from(d) for d in meta["ss"]],
-        )
-    param = backend.setup(circuit_info, random.Random(seed))
-    os.makedirs(SRS_CACHE_DIR, exist_ok=True)
+    return MultilinearKzgParams(
+        g1=pt(meta["g1"]), eqs=eqs, g2=_g2_from(meta["g2"]),
+        ss=[_g2_from(d) for d in meta["ss"]],
+    )
+
+
+def save_srs(path: str, param) -> None:
+    """Write a multilinear KZG SRS where ``load_srs`` reads it."""
+    import numpy as np
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     meta = {
         "levels": len(param.eqs),
         "g1": [int(param.g1.x), int(param.g1.y)],
@@ -874,7 +991,6 @@ def _setup_cached(backend, circuit_info, k: int, pcs_name: str, device, seed=0):
     }
     arrays = {f"eq{i}": e.cpu().numpy() for i, e in enumerate(param.eqs)}
     np.savez(path, meta=json.dumps(meta), **arrays)
-    return param
 
 
 def _append_breakdown(path: str, k: int, breakdown_ms) -> None:

@@ -28,6 +28,7 @@ from typing import List, Sequence
 
 import torch
 
+from .. import parallel
 from ..fields import limb
 from ..fields.host import Fp
 from ..kernels import msm as kmsm
@@ -108,7 +109,16 @@ def variable_base_msm(
 
     scalars: canonical (not Montgomery) int32[N, 8]; bases: affine
     int32[N, 2, 8] on the same device.  The one result point is the only
-    read from the device."""
+    read from the device.  Under a mesh of w > 1 ranks, with N divisible
+    by w and N / w >= 4, the points are split over the ranks
+    (``parallel.sharded.sharded_msm``), the reference's rule
+    (curves/msm.py:583-593); otherwise every rank runs the whole MSM."""
+    n = scalars.shape[0]
+    mesh = parallel.get_mesh()
+    if mesh is not None and mesh.world > 1 and n % mesh.world == 0 and n // mesh.world >= 4:
+        from ..parallel.sharded import sharded_msm
+
+        return sharded_msm(curve, mesh, scalars, bases)
     point = msm_jacobian(curve, scalars, bases).cpu()
     return cdev.jac_to_host(curve, point[None])[0]
 

@@ -1,4 +1,5 @@
-# Copied from plonkish_tpu/models/aggregation.py; imports resolve inside plonkish_tpu_torch.
+# Ported from plonkish_tpu/models/aggregation.py (imports resolve inside plonkish_tpu_torch);
+# the witness comes from a Jacobian ladder with one batch inversion, the same values.
 """Aggregation-shaped benchmark circuit.
 
 The reference's default bench workload is a snark-verifier KZG aggregation
@@ -103,8 +104,8 @@ def rand_aggregation_circuit(
     benchmark harness can drive it.  `spec` must be BN254_FR (the Grumpkin
     base field); raises otherwise.
 
-    Witness generation runs in raw Python ints (one modular inverse + a
-    handful of multiplies per row); ~2^20 rows take a few seconds.
+    Witness generation runs in raw Python ints: a dozen multiplies a row in
+    Jacobian coordinates and one batch inversion for all rows.
     """
     curve = GRUMPKIN_G1
     if spec.p != curve.base.p:
@@ -160,32 +161,65 @@ def rand_aggregation_circuit(
     # the add/double schedule is circuit STRUCTURE (selectors + copy
     # wiring), so it must come from the preprocess rng — circuits sharing a
     # preprocess seed must be foldable into one accumulator
-    bits = preprocess_rng.getrandbits(size)
+    schedule = format(preprocess_rng.getrandbits(size), f"0{size}b")[::-1]
+    # The ladder runs in Jacobian coordinates (X, Y, Z), with no inversion a
+    # row; one batch inversion of the rows' Z then gives the affine points
+    # and slopes the affine formulas give: x3 = X3/Z3^2, y3 = Y3/Z3^3 and
+    # lam = num/Z3, where a mixed add has num = by*Z1^3 - Y1 and
+    # Z3 = Z1*(bx*Z1^2 - X1), and a doubling (a = 0) num = 3*X1^2 and
+    # Z3 = 2*Y1*Z1.  A zero Z3 is the exceptional case, and pow raises on it.
+    X, Y, Z = ax, ay, 1
+    nums, xs, ys, zs = [], [], [], []
     for idx in range(1, size - 1):
-        x1_col[idx] = ax
-        y1_col[idx] = ay
-        if (bits >> idx) & 1:
+        if schedule[idx] == "1":
             # mixed add of a fixed base point
             bx, by = base_xy[idx % NUM_BASE_POINTS]
             q_add[idx] = 1
             px_col[idx] = bx
             py_col[idx] = by
-            lam = ((by - ay) * pow(bx - ax, -1, p)) % p
-            nx = (lam * lam - ax - bx) % p
+            zz = Z * Z % p
+            h = (bx * zz - X) % p
+            num = (by * zz % p * Z - Y) % p
+            hh = h * h % p
+            hhh = hh * h % p
+            v = X * hh % p
+            X3 = (num * num - hhh - 2 * v) % p
+            Y = (num * (v - X3) - Y * hhh) % p
+            Z = Z * h % p
         else:
             q_dbl[idx] = 1
-            lam = (3 * ax * ax % p) * pow(2 * ay, -1, p) % p
-            nx = (lam * lam - 2 * ax) % p
-        ny = (lam * (ax - nx) - ay) % p
-        x3_col[idx] = nx
-        y3_col[idx] = ny
-        lam_col[idx] = lam
+            yy = Y * Y % p
+            num = 3 * X * X % p
+            s = 4 * X * yy % p
+            X3 = (num * num - 2 * s) % p
+            Z = 2 * Y * Z % p
+            Y = (num * (s - X3) - 8 * yy * yy) % p
+        X = X3
+        nums.append(num)
+        xs.append(X)
+        ys.append(Y)
+        zs.append(Z)
         if idx + 1 < size - 1:
             # chain: this row's output is the next row's input
             permutation.copy((7, idx), (5, idx + 1))
             permutation.copy((8, idx), (6, idx + 1))
-        ax, ay = nx, ny
-    del bits
+    del schedule
+
+    prefix, prod = [], 1
+    for z in zs:
+        prod = prod * z % p
+        prefix.append(prod)
+    inv = pow(prod, -1, p)  # 1 / (Z_1 ... Z_n)
+    for i in range(len(zs) - 1, -1, -1):
+        zi = inv * prefix[i - 1] % p if i else inv
+        inv = inv * zs[i] % p
+        zi2 = zi * zi % p
+        x3_col[i + 1] = xs[i] * zi2 % p
+        y3_col[i + 1] = ys[i] * zi2 % p * zi % p
+        lam_col[i + 1] = nums[i] * zi % p
+    del nums, xs, ys, zs, prefix
+    for idx in range(1, size - 1):
+        x1_col[idx], y1_col[idx] = (ax, ay) if idx == 1 else (x3_col[idx - 1], y3_col[idx - 1])
 
     def col(vals: List[int]) -> List[Fp]:
         return [Fp(v, spec) for v in vals]

@@ -20,11 +20,12 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import parallel, resolve_device
 from ..fields import limb
 from ..fields.host import Fp
 from ..fields.spec import FieldSpec
 from ..ops.keccak_batch import keccak256_many
+from ..parallel import sharded
 from ..poly.multilinear import MLPoly, eq_xy
 from ..utils import keccak_device
 from ..utils.transcript import Keccak256Transcript
@@ -88,7 +89,16 @@ class MultilinearBrakedown:
         spec = pp.spec
         code = pp.code
         matrix = poly.evals.reshape(pp.num_rows, code.row_len, limb.L)
-        canon = limb.from_mont(spec, code.encode(matrix))  # [num_rows, cw, 8]
+        # rows encode independently: under a mesh each rank encodes its block
+        # of rows (reference brakedown.py:88-94), and the columns are hashed
+        # on every rank once the encoded rows are gathered
+        block = parallel.row_block(pp.num_rows)
+        if block is None:
+            encoded = code.encode(matrix)
+        else:
+            block.mesh.taken["brakedown_commit"] += 1
+            encoded = sharded.all_gather_cat(block.mesh, code.encode(block.take(matrix)), 0)
+        canon = limb.from_mont(spec, encoded)  # [num_rows, cw, 8]
         hashes, root = _merklize_device(canon, code.codeword_len)
         return BrakedownCommitment(
             root=root, rows=canon.cpu().numpy(), intermediate_hashes=hashes

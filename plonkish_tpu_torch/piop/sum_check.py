@@ -23,11 +23,13 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from .. import parallel
 from ..fields import limb
 from ..fields.host import Fp, batch_invert
 from ..fields.spec import FieldSpec
 from ..kernels import sumcheck as ksc
 from ..kernels import sumcheck_gen
+from ..parallel import sharded
 from ..poly.multilinear import MLPoly, eq_xy_evals
 from ..utils.bh import BooleanHypercube
 from ..utils.expression import (
@@ -165,7 +167,15 @@ def barycentric_interpolate(
 class ProverState:
     """Live tables of the classic sum-check prover (classic.rs:25-150), with
     dense Lagrange one-hots and rotations materialised by a BH gather at
-    round 0, stacked into one tensor."""
+    round 0, stacked into one tensor.
+
+    Under a mesh (``parallel.row_block``) ``stacked`` holds only this rank's
+    block of rows (reference sum_check.py:302-308): every table is built from
+    the whole polynomial, which every rank holds, and then cut, so a rotated
+    block is ``poly[rmap[block]]``.  ``row0`` is the global index of the
+    block's first row in the current (folded) tables.  Once a fold leaves
+    one row a rank, the ranks' rows are all-gathered and the last log2(world)
+    rounds run replicated."""
 
     def __init__(self, spec: FieldSpec, num_vars: int, sum_: Fp,
                  virtual_poly: VirtualPolynomial):
@@ -184,19 +194,27 @@ class ProverState:
         self.device = device
         bh = BooleanHypercube(num_vars)
         n = 1 << num_vars
+        block = parallel.row_block(n)
+        self.mesh = None if block is None else block.mesh
+        lo, hi = (0, n) if block is None else (block.start, block.stop)
+        self.row0 = lo
+        if self.mesh is not None:
+            self.mesh.taken["sum_check"] += 1
         tables = {}
         for i in self.expression.used_lagrange():
-            vec = limb.zeros((n,), device)
-            vec[int(bh.iter_array[i % n])] = limb.one(spec, (), device)
+            vec = limb.zeros((hi - lo,), device)
+            b = int(bh.iter_array[i % n])
+            if lo <= b < hi:
+                vec[b - lo] = limb.one(spec, (), device)
             tables[("lagrange", i)] = vec
         for i, y in enumerate(virtual_poly.ys):
-            tables[("eq_xy", i)] = eq_xy_evals(spec, y, device)
+            tables[("eq_xy", i)] = eq_xy_evals(spec, y, device)[lo:hi]
         for idx, poly in enumerate(virtual_poly.polys):
-            tables[("poly", idx, 0)] = poly.evals
+            tables[("poly", idx, 0)] = poly.evals[lo:hi]
         for query in self.expression.used_query():
             rot = query.rotation.value
             if rot != 0 and ("poly", query.poly, rot) not in tables:
-                rmap = torch.as_tensor(bh.rotation_map(rot), device=device)
+                rmap = torch.as_tensor(bh.rotation_map(rot)[lo:hi], device=device)
                 tables[("poly", query.poly, rot)] = virtual_poly.polys[query.poly].evals[rmap]
         self.table_keys = tuple(sorted(tables))
         self.stacked = torch.stack([tables[k] for k in self.table_keys], dim=0)
@@ -208,12 +226,23 @@ class ProverState:
     def table(self, key) -> torch.Tensor:
         return self.stacked[self.table_keys.index(key)]
 
+    def all_reduce(self, sums: torch.Tensor) -> torch.Tensor:
+        """The round's sums over every rank's pairs (Montgomery [m, 8]); the
+        sums themselves when the rows are whole here."""
+        if self.mesh is None:
+            return sums
+        return sharded.all_reduce_field(self.spec, self.mesh, sums)
+
     def next_round(self, sum_: Fp, challenge: Fp) -> None:
         self.sum = sum_
         self.identity_offset = self.identity_offset + challenge * (1 << self.round)
         c = limb.const(self.spec, int(challenge), self.device)
         self.stacked = ksc.fold(self.spec, self.stacked, c)
         self.round += 1
+        self.row0 //= 2
+        if self.mesh is not None and self.stacked.shape[1] == 1:
+            self.stacked = sharded.all_gather_cat(self.mesh, self.stacked, 1)
+            self.mesh, self.row0 = None, 0
 
     def into_evals(self) -> List[Fp]:
         """Final evaluations of each input poly at the challenge point."""
@@ -223,12 +252,14 @@ class ProverState:
         return [Fp(v, self.spec) for v in vals]
 
 
-def identity_params(spec: FieldSpec, round_: int, offset: Fp, device):
+def identity_params(spec: FieldSpec, round_: int, offset: Fp, device, pair0: int = 0):
     """(mul, base, step) of the identity leaf at this round, as the rows of
     one int32[3, 8] (one upload): value at pair i and t is
-    offset + 2^r + i * 2^(r+1) + (t - 1) * 2^r (eval.rs:233-236)."""
+    offset + 2^r + i * 2^(r+1) + (t - 1) * 2^r (eval.rs:233-236).  `pair0`
+    is the global index of the first pair of a rank's block: its pair i is
+    pair pair0 + i of the whole table."""
     mul = ((1 << (round_ + 1)) * spec.r2_mod_p) % spec.p
-    base = spec.to_mont((int(offset) + (1 << round_)) % spec.p)
+    base = spec.to_mont((int(offset) + (1 << round_) + pair0 * (1 << (round_ + 1))) % spec.p)
     step = spec.to_mont((1 << round_) % spec.p)
     return limb.from_ints([mul, base, step], device)
 
@@ -318,11 +349,12 @@ class EvaluationsProver:
     def prove_round(self, state: ProverState) -> Evaluations:
         spec = state.spec
         d = state.degree
-        ids = identity_params(spec, state.round, state.identity_offset, state.device)
-        sums = ksc.round_evals(
+        ids = identity_params(spec, state.round, state.identity_offset, state.device,
+                              state.row0 // 2)
+        sums = state.all_reduce(ksc.round_evals(
             spec, state.stacked, self.instrs, self.consts, self.tape.num_regs,
             self.tape.out_reg, d, ids,
-        )
+        ))
         vals = limb.to_canonical_ints(spec, sums)
         evals = [Fp.zero(spec)] + [Fp(v, spec) for v in vals]
         evals[0] = state.sum - evals[1]
@@ -417,7 +449,8 @@ class CoefficientsProver:
                 t0, t2 = limb.d_mul(lo, s, c), limb.d_mul(hi, s, c)
                 acc0 = t0 if acc0 is None else limb.d_add(acc0, t0, c)
                 acc2 = t2 if acc2 is None else limb.d_add(acc2, t2, c)
-            v0, v2 = limb.to_canonical_ints(spec, limb.pack(torch.cat([acc0, acc2], 1)))
+            sums = state.all_reduce(limb.pack(torch.cat([acc0, acc2], 1)))
+            v0, v2 = limb.to_canonical_ints(spec, sums)
             c0 = c0 + Fp(v0, spec)
             c2 = c2 + Fp(v2, spec)
         c1 = state.sum - c0.double() - c2

@@ -1,7 +1,8 @@
 """The port's benchmark harness through its CLI entry point on the CPU at tiny
 k, mirroring tests/test_benchmark_cli.py: every system and circuit it offers
-runs end to end and writes its rows in the reference's formats, a choice that
-is not ported yet is refused by argparse, and the zero_check system's
+runs end to end and writes its rows in the reference's formats (the
+``--mesh`` scaling sweep too), a choice that is not ported is refused by
+argparse, and the zero_check system's
 sum-check proof equals, byte for byte, the reference's built from the same
 seeds."""
 
@@ -109,7 +110,7 @@ def test_cli_plotter():
     assert os.path.exists("target/bench_torch/sys_a.breakdown.svg")
 
 
-@pytest.mark.parametrize("argv", [["--backend", "jax"], ["--mesh", "1,2"]])
+@pytest.mark.parametrize("argv", [["--backend", "jax"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:
         benchmark.main(["--device", "cpu", "--k", "5..6", *argv])
@@ -117,6 +118,38 @@ def test_cli_refuses_what_is_not_ported(argv, capsys):
     err = capsys.readouterr().err
     assert "invalid choice" in err or "unrecognized arguments" in err
     assert not os.path.exists("target/bench_torch/hyperplonk")
+
+
+def test_cli_mesh(capsys):
+    """The scaling sweep on the CPU: a group of one and of two gloo ranks
+    prove the zero-check at k = 5 (their proofs equal, or the harness
+    raises), and the rows come back in the reference's `scaling` format."""
+    benchmark.main(["--device", "cpu", "--system", "zero_check", "--mesh", "1,2",
+                    "--k", "5..6", "--samples", "1"])
+    notes, rows = _rows("target/bench_torch/scaling")
+    assert len(notes) == 1 and "system=zero_check k=5 backend=gloo device=cpu" in notes[0]
+    assert "metric=T1/TN (shared CPU, collective overhead only)" in notes[0]
+    fields = [r.split(",") for r in rows]  # `k, ranks, avg_ms, efficiency_pct`
+    assert [(int(f[0]), int(f[1])) for f in fields] == [(5, 1), (5, 2)]
+    assert all(float(f[2]) > 0 and float(f[3]) > 0 for f in fields)
+    assert float(fields[0][3]) == 100.0
+    out = capsys.readouterr().out
+    assert "k=5 mesh=2: avg" in out and "sharded sites {'sum_check': 1}" in out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--system", "hyperplonk", "--mesh", "1,2"],
+    ["--system", "zero_check", "--mesh", "0,2"],
+    ["--system", "zero_check", "--mesh", "1,two"],
+])
+def test_cli_mesh_refusals(argv, capsys):
+    """--mesh sweeps the zero_check system only, with rank counts of 1 or
+    more: refused before anything runs."""
+    with pytest.raises(SystemExit) as e:
+        benchmark.main(["--device", "cpu", "--k", "5..6", *argv])
+    assert e.value.code == 2
+    assert "--mesh" in capsys.readouterr().err
+    assert not os.path.exists("target/bench_torch/scaling")
 
 
 @pytest.mark.parametrize("argv", [

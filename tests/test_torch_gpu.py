@@ -374,3 +374,42 @@ def test_benchmark_circuit_round_kernels_match_plain(cuda, circuit):
         args = (part, prover.instrs, prover.consts, prover.tape.num_regs,
                 prover.tape.out_reg, state.degree, ids)
         assert torch.equal(ksc.sumcheck_round_cuda(spec, *args), ksc.sumcheck_round_plain(spec, *args))
+
+
+def _sharded_prove_rank(mesh, k):
+    """One rank of test_two_ranks_share_the_card: the proof, the kernel
+    launches and the sharded sites of its prove."""
+    from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES, reset_launches
+    from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+    from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    ci, circuit = rand_vanilla_plonk_circuit(BN254_FR, k, random.Random(1), random.Random(2))
+    backend = HyperPlonk(MultilinearKzg(device=mesh.device))
+    pp, _ = backend.preprocess(backend.setup(ci, random.Random(0)), ci)
+    mesh.reset_stats()
+    reset_launches()
+    tr = Keccak256Transcript(BN254_FR)
+    backend.prove(pp, circuit, tr)
+    return tr.into_proof(), dict(LAUNCHES), dict(mesh.taken)
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_the_card(cuda):
+    """Two gloo ranks on one card prove a k = 10 vanilla circuit over KZG:
+    each rank's proof equals the unsharded proof on the card, and each rank
+    launched K1-K4 on its rows, through sharded_msm."""
+    from plonkish_tpu_torch import parallel
+
+    k = 10
+    with parallel.use_mesh(None):
+        want = _sharded_prove_rank(
+            parallel.Mesh(group=None, rank=0, world=1, backend="gloo", device=cuda), k)[0]
+    results = parallel.spawn(_sharded_prove_rank, 2, "gloo", cuda, args=(k,), deadline_s=600)
+    prover_kernels = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+    for proof, launches, taken in results:
+        assert proof == want
+        assert all(launches[name] > 0 for name in prover_kernels), launches
+        assert taken["msm"] > 0 and taken["sum_check"] == 2 and taken["permutation_z"] == 1

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
-package, its entry points default to the CUDA card and raise without one,
-and chip_smoke.py imports neither."""
+package (nor do the ranks of a sharded prove), its entry points default to
+the CUDA card and raise without one, and chip_smoke.py imports neither."""
 
 import ast
 import pathlib
@@ -85,6 +85,42 @@ print("LOADED", bad)
 """
 
 
+SHARDED_PROBE = r"""
+import random, sys
+sys.path.insert(0, ROOT)
+from plonkish_tpu_torch import parallel
+
+
+def loaded():
+    return sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith("jax.") or m == "plonkish_tpu"
+                  or m.startswith("plonkish_tpu."))
+
+
+def rank(mesh):
+    from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+    from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    ci, circuit = rand_vanilla_plonk_circuit(BN254_FR, 3, random.Random(1), random.Random(2))
+    backend = HyperPlonk(MultilinearKzg(device="cpu"))
+    pp, vp = backend.preprocess(backend.setup(ci, random.Random(0)), ci)
+    tr = Keccak256Transcript(BN254_FR)
+    backend.prove(pp, circuit, tr)
+    backend.verify(vp, circuit.instances(),
+                   Keccak256Transcript.from_proof(BN254_FR, tr.into_proof()))
+    assert mesh.taken["sum_check"] > 0
+    return loaded()
+
+
+if __name__ == "__main__":
+    ranks = parallel.spawn(rank, 2, "gloo", "cpu", threads=1, deadline_s=300)
+    print("LOADED", sorted(set(loaded()).union(*ranks)))
+"""
+
+
 def _loads_no_jax(probe):
     out = subprocess.run(
         [sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -106,6 +142,18 @@ def test_univariate_and_models_load_no_jax():
     """A univariate PLONK prove and verify at k = 3, and the aggregation and
     sha256 circuits built through the frontend."""
     _loads_no_jax(UNIVARIATE_PROBE)
+
+
+def test_sharded_prove_loads_no_jax(tmp_path):
+    """A HyperPlonk prove at k = 3 by two gloo ranks, verified: neither the
+    ranks nor the process that started them load JAX."""
+    script = tmp_path / "sharded_probe.py"
+    script.write_text(SHARDED_PROBE.replace("sys.path.insert(0, ROOT)",
+                                            f"sys.path.insert(0, {str(ROOT)!r})"))
+    out = subprocess.run([sys.executable, str(script)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
 
 
 def _imports(path):

@@ -20,7 +20,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    0-byte stack frame and no spills; print the card.  The two sha256 tapes
    take about two minutes each: they build in a thread of their own through
    phases 2 and 3, and are printed and held against their plain version
-   (as phase 2 holds the others) once they are built, before phase 4;
+   (as phase 2 holds the others) once they are built, before phase 4.  The
+   library holds K6, the device transcript's round message
+   (csrc/fiat_shamir.cu); the native host runtime of the bench's baseline
+   (csrc/field_native.cpp, g++) builds in a thread until phase 12;
 2. every kernel against its plain PyTorch version on the card, on the same
    inputs, exact equality required (MSM K1+K2 on BN254 at 2^12 points with
    edge cases, at 2^16 random points and at 2^16 selector-like scalars in
@@ -30,7 +33,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    sum-check round K3 for every expression of phase 1 at 2^16 pairs and at
    one pair, fold K4 over Fr and Fq, the IPA base fold at
    2^12 points with identities for xi in {0, 1, q - 1, random}, the
-   mont_mul chain probe K5 with both multipliers at 2^16 elements);
+   mont_mul chain probe K5 with both multipliers at 2^16 elements; K6 over
+   Fr and Fq at degrees 1, 3 and 5 from sponges with 0, 32, 80 and 120 bytes
+   pending, and ten chained rounds with the Coefficients round beside each);
 3. the nine frozen HyperPlonk proofs of tests/golden (KZG k3, k5 and lookup
    k5; Gemini, Zeromorph, IPA and Hyrax k5; Brakedown k3 and k5) and the
    Protostar decider proof (KZG, k3, after two folds) produced on the card,
@@ -39,7 +44,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    circuit at k = 20: setup, preprocess, a warm-up prove, a timed prove with
    its span breakdown and kernel launch counts, verify, and a flipped byte
    rejected; the timed prove must build no K3 kernel (the count of
-   generated kernels is printed);
+   generated kernels is printed); then the prove again with
+   PLONKISH_TPU_DEVICE_FS=0 (the host transcript, no K6), timed, its proof
+   equal to the device transcript's byte for byte;
 5. each kernel timed with CUDA events at the shapes of the k = 20 proves (K5
    at 2^22 elements, 16 products deep, both multipliers), beside its plain
    version and the least time the card could take; the operation and byte
@@ -49,7 +56,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    2^20 and at 2^10 (its fixed cost), and K3 summed over the 20 rounds of
    the k = 20 zero-check with K4 between rounds; then the Grumpkin K1 and K2
    at 2^20 points of the IPA basis, K3 and K4 over Fq at the k = 20 shapes
-   and the IPA base fold at 2^19 points;
+   and the IPA base fold at 2^19 points; K6 a launch, both rounds;
 6. the bench harness in process (plonkish_tpu_torch.benchmark): the
    zero_check system at k = 18 (20 until phase 11 came) and the pcs kzg
    system at k = 20, whose rows are read back from
@@ -99,7 +106,18 @@ Phases, each printed on its own line; any failure exits non-zero:
    before its timed prove: each rank's proof must equal phase 4's,
    each must launch K1-K4 on its rows and take sharded_msm; each rank's
    prove time, collectives, bytes and peak device memory are printed (one
-   card, so no scaling is claimed: the two ranks share it).
+   card, so no scaling is claimed: the two ranks share it);
+12. the device transcript on phase 4's circuit and params at k = 20: the
+   zero-check's per-round split with the host transcript and the device one
+   (plonkish_tpu_torch.profile_zero_check), the device rounds enqueued under
+   torch.cuda.set_sync_debug_mode("error") up to their one transfer; then
+   the MSM bench (plonkish_tpu_torch.bench) at 2^20 in process, its device
+   point equal to the native one.
+
+Phases 3-11 run with the device transcript on (PLONKISH_TPU_DEVICE_FS's
+default): each sum-check round on the card enqueues K3, K6 and K4 with no
+host read, so each of their equality checks holds K6 too; a prove must
+launch K6 (FS_KERNELS) as it launches K1-K4.
 
 The last three lines of standard output are the kernels JSON line, the card
 as nvidia-smi reports it, and the result line.  The script imports no JAX
@@ -122,7 +140,11 @@ K_FULL = 20
 K_PCS_ROWS = 16
 K_SANGRIA_ROW = 16
 K_ZERO_CHECK_ROW = 18  # phase 6's zero_check row, cut from 20 for the same reason
-PROVER_KERNELS = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+MSM_SUMCHECK_KERNELS = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+# K6, the device transcript's round message: the zero-check's rounds and the
+# batch open's degree-2 rounds
+FS_KERNELS = ("fs_round_message", "fs_coeff_message")
+PROVER_KERNELS = MSM_SUMCHECK_KERNELS + FS_KERNELS
 # the decider tapes of phase 8, the harness's sangria and the IPA path:
 # (name, scheme, circuit of models.circuits)
 DECIDERS = (
@@ -181,6 +203,7 @@ def main() -> int:
     main_lib = threading.Thread(target=lambda: built.update(
         path=build.build_cuda(), seconds=time.time() - t0))
     main_lib.start()
+    native = start_native_build()
     structures, late = phase1_round_kernels(torch)
     main_lib.join()
     if "path" not in built:
@@ -201,6 +224,7 @@ def main() -> int:
 
     at(2)
     phase2_kernels(torch, structures)
+    phase2_round_message(torch)
     at(3)
     phase3_golden(torch, here)
     late_round_kernels(torch, late, structures)
@@ -225,6 +249,8 @@ def main() -> int:
         phase11_sharded(torch, K_FULL, LAUNCHES, reset_launches, shapes, ranks)
     finally:
         ranks.close()
+    at(12)
+    phase12_device_fs(torch, K_FULL, shapes, native)
     for row in kernels:  # each kernel's launches on the path that runs it
         if row["name"] == "mont_mul_chain":
             row["launches"] = harness_path["mont_mul_chain"]
@@ -689,6 +715,139 @@ def phase2_kernels(torch, structures):
         "u32 and f32: 0 mismatches")
 
 
+def start_native_build():
+    """The native host runtime (ops/field_cpp.py, g++), the bench's
+    baseline, built in a thread from phase 1 on; phase 12 waits for it."""
+    from plonkish_tpu_torch.ops import field_cpp
+
+    result = {}
+
+    def run():
+        t0 = time.time()
+        try:
+            result["path"] = field_cpp.build_native()
+        except Exception as e:  # noqa: BLE001 - reported where phase 12 waits for it
+            result["error"] = e
+        result["seconds"] = time.time() - t0
+
+    thread = threading.Thread(target=run, name="native build")
+    thread.start()
+    return thread, result
+
+
+def fs_round_case(torch, spec, degree, pending_bytes, rng, device="cuda"):
+    """K6's Evaluations-round buffers: a sponge seeded from a host transcript
+    with `pending_bytes` buffered (a permutation already run), random K3
+    sums, claimed sum and offset, and round 2's identity rows."""
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.host import Fp
+    from plonkish_tpu_torch.piop import fiat_shamir as fs
+    from plonkish_tpu_torch.piop.sum_check import identity_stack
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    tr = Keccak256Transcript(spec)
+    for _ in range(5):
+        tr.common_field_element(Fp(rng.randrange(spec.p), spec))
+    tr.squeeze_challenge()  # 32 bytes pending
+    tr.state.update(bytes(rng.getrandbits(8) for _ in range((pending_bytes - 32) % 136)))
+    lanes, pending = tr.export_sponge()
+    assert len(pending) == pending_bytes
+
+    def mont(n):
+        return limb.from_ints([spec.to_mont(rng.randrange(spec.p)) for _ in range(n)], device)
+
+    return {
+        "sums": mont(degree), "scal": mont(2),
+        "sponge": fs.DeviceSponge.from_host(lanes, pending).words().to(device),
+        "fixed": fs.lagrange_constants(spec, degree, device),
+        "rows": identity_stack(spec, [3, 1, 0, 0], device)[2:4].contiguous(),
+    }
+
+
+def fs_round_outputs(torch, spec, degree, case, plain):
+    """K6 (or its plain version) on copies of `case`: every buffer it writes."""
+    from plonkish_tpu_torch.kernels import fiat_shamir as kfs
+    from plonkish_tpu_torch.piop import fiat_shamir as fs
+
+    b = {k: v.clone() for k, v in case.items()}
+    dev = b["sums"].device
+    out = torch.zeros((degree + 2, 8), dtype=torch.int32, device=dev)
+    chm = torch.zeros(8, dtype=torch.int32, device=dev)
+    ids = torch.zeros((3, 8), dtype=torch.int32, device=dev)
+    args = (b["sums"], b["scal"], b["sponge"], b["fixed"], b["rows"], out, chm, ids)
+    if plain:
+        fs.round_message_plain(spec, degree, *args)
+    else:
+        kfs.round_cuda(spec, degree, *args)
+    return {"scal": b["scal"], "sponge": b["sponge"], "out": out, "ch_mont": chm, "ids": ids}
+
+
+def fs_coeff_outputs(torch, spec, v, scal, sponge, c0_base, plain):
+    from plonkish_tpu_torch.kernels import fiat_shamir as kfs
+    from plonkish_tpu_torch.piop import fiat_shamir as fs
+
+    scal, sponge = scal.clone(), sponge.clone()
+    out = torch.zeros((4, 8), dtype=torch.int32, device=v.device)
+    chm = torch.zeros(8, dtype=torch.int32, device=v.device)
+    if plain:
+        fs.coeff_message_plain(spec, v, scal, sponge, c0_base, out, chm)
+    else:
+        kfs.coeff_cuda(spec, v, scal, sponge, c0_base, out, chm)
+    return {"scal": scal, "sponge": sponge, "out": out, "ch_mont": chm}
+
+
+def phase2_round_message(torch):
+    """K6 against its plain version on the card: both fields, degrees 1, 3
+    and 5, sponges entered with 0, 32, 80 and 120 pending bytes (absorbs that
+    straddle the 136-byte rate), and ten chained rounds, each from the last
+    one's sponge, sum, offset and identity rows; the Coefficients round from
+    each chained sponge."""
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from plonkish_tpu_torch.piop.sum_check import identity_stack
+
+    t0 = time.time()
+    rng = random.Random(12)
+    cases = 0
+    for spec in (BN254_FR, BN254_FQ):
+        for degree in (1, 3, 5):
+            for pending in (0, 32, 80, 120):
+                case = fs_round_case(torch, spec, degree, pending, rng)
+                got = fs_round_outputs(torch, spec, degree, case, plain=False)
+                want = fs_round_outputs(torch, spec, degree, case, plain=True)
+                for key in got:
+                    if not torch.equal(got[key], want[key]):
+                        fail(f"K6 fs_round_message differs from its plain version over "
+                             f"{spec.name}, degree {degree}, {pending} bytes pending: {key}")
+                cases += 1
+        degree = 5
+        state = fs_round_case(torch, spec, degree, 80, rng)
+        stack = identity_stack(spec, list(range(10)), "cuda")
+        for r in range(10):
+            state["sums"] = limb.from_ints(
+                [spec.to_mont(rng.randrange(spec.p)) for _ in range(degree)], "cuda")
+            state["rows"] = stack[r: r + 2].contiguous()
+            got = fs_round_outputs(torch, spec, degree, state, plain=False)
+            want = fs_round_outputs(torch, spec, degree, state, plain=True)
+            for key in got:
+                if not torch.equal(got[key], want[key]):
+                    fail(f"K6 fs_round_message differs from its plain version over {spec.name} "
+                         f"at chained round {r}: {key}")
+            v = limb.from_ints([spec.to_mont(rng.randrange(spec.p)) for _ in range(2)], "cuda")
+            c0 = limb.from_ints([spec.to_mont(rng.randrange(spec.p))], "cuda")[0]
+            cg = fs_coeff_outputs(torch, spec, v, got["scal"][0], got["sponge"], c0, plain=False)
+            cw = fs_coeff_outputs(torch, spec, v, got["scal"][0], got["sponge"], c0, plain=True)
+            for key in cg:
+                if not torch.equal(cg[key], cw[key]):
+                    fail(f"K6 fs_coeff_message differs from its plain version over {spec.name} "
+                         f"at chained round {r}: {key}")
+            state.update(sponge=got["sponge"], scal=got["scal"])
+            cases += 2
+    log(f"[kernels] K6 round message over Fr and Fq, degrees 1, 3, 5, sponges with 0, 32, 80 "
+        f"and 120 bytes pending, ten chained rounds with the Coefficients round beside each: "
+        f"0 mismatches in {cases} cases ({time.time() - t0:.1f}s)")
+
+
 # ------------------------------------------------------ 3 golden proofs
 
 def phase3_golden(torch, here):
@@ -793,9 +952,44 @@ def phase4_full(torch, k, launches, reset_launches):
     times["prove"], main_path, proof = prove_and_check(
         torch, f"k={k}", backend, pp, vp, circuit, BN254_FR, launches, reset_launches,
         must=PROVER_KERNELS)
+    times["prove_host_fs"] = prove_host_transcript(torch, k, backend, pp, circuit, proof,
+                                                   launches, reset_launches)
     log(f"[k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
     return main_path, {"pp": pp, "vp": vp, "k": k, "circuit": (ci, circuit), "param": param,
                        "proof": proof, "prove_s": times["prove"], "srs_path": srs_path}
+
+
+def prove_host_transcript(torch, k, backend, pp, circuit, proof, launches, reset_launches):
+    """The prove again with PLONKISH_TPU_DEVICE_FS=0, timed right after the
+    device-transcript prove: its proof must equal that one byte for byte,
+    and it must launch no K6.  Returns its seconds."""
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    saved = os.environ.get("PLONKISH_TPU_DEVICE_FS")
+    os.environ["PLONKISH_TPU_DEVICE_FS"] = "0"
+    try:
+        reset_launches()
+        tr = Keccak256Transcript(BN254_FR)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        backend.prove(pp, circuit, tr)
+        torch.cuda.synchronize()
+        prove_s = time.time() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("PLONKISH_TPU_DEVICE_FS")
+        else:
+            os.environ["PLONKISH_TPU_DEVICE_FS"] = saved
+    fs_launches = {name: launches[name] for name in FS_KERNELS}
+    if tr.into_proof() != proof:
+        fail(f"[k={k}] the proof with PLONKISH_TPU_DEVICE_FS=0 differs from the device "
+             "transcript's")
+    if any(fs_launches.values()):
+        fail(f"[k={k}] PLONKISH_TPU_DEVICE_FS=0 launched K6: {json.dumps(fs_launches)}")
+    log(f"[k={k}] prove with PLONKISH_TPU_DEVICE_FS=0 (the host transcript) {prove_s:.3f}s, "
+        "proof equal to the device transcript's; no K6 launched")
+    return prove_s
 
 
 # ------------------------------------------------------ 5 kernel timing
@@ -937,6 +1131,7 @@ def phase5_timing(torch, shapes, main_path):
         f"{round_bounds[0]:.3f} ms); per round {[round(v, 4) for v in per_round]}")
 
     new_rows = timing_new_instantiations(torch, k, gen, peaks)
+    fs_rows = timing_round_message(torch, state.degree, peaks, main_path)
 
     rows_out = []
     for name, source_file, replaces, ms, plain_ms, err, work in (
@@ -971,7 +1166,73 @@ def phase5_timing(torch, shapes, main_path):
         log(f"[timing] {name}: {ms:.3f} ms{extra} (plain {plain_ms:.1f} ms, bound "
             f"{b_ms:.3f} ms by {b_by} at the {b_src} rate), {main_path[name]} launches "
             "in the prove")
-    return rows_out + new_rows
+    return rows_out + fs_rows + new_rows
+
+
+def timing_round_message(torch, degree, peaks, main_path):
+    """K6 at the main path's shapes (the zero-check's degree over Fr, its
+    sponge in the steady state of 32 bytes pending; the batch open's
+    Coefficients round), each launch on the buffers the last one advanced,
+    against its plain version once on the same inputs.  Rows of the kernels
+    line; their launches are read on the main path."""
+    from plonkish_tpu_torch import roofline
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import fiat_shamir as kfs
+
+    spec = BN254_FR
+    rng = random.Random(13)
+    case = fs_round_case(torch, spec, degree, 32, rng)
+    out = torch.zeros((degree + 2, 8), dtype=torch.int32, device="cuda")
+    chm = torch.zeros(8, dtype=torch.int32, device="cuda")
+    ids = torch.zeros((3, 8), dtype=torch.int32, device="cuda")
+    bufs = {k: v.clone() for k, v in case.items()}
+    round_ms = cuda_ms(torch, lambda: kfs.round_cuda(
+        spec, degree, bufs["sums"], bufs["scal"], bufs["sponge"], bufs["fixed"], bufs["rows"],
+        out, chm, ids), 200)
+    got = fs_round_outputs(torch, spec, degree, case, plain=False)
+    round_plain_ms, want = timed_once(
+        torch, lambda: fs_round_outputs(torch, spec, degree, case, plain=True))
+    round_err = 0 if all(torch.equal(got[key], want[key]) for key in got) else 1
+    in_words = degree * 8 + 16 + kfs.SPONGE_WORDS + 2 * (degree + 1) * 8 + 48
+    out_words = 16 + kfs.SPONGE_WORDS + (degree + 2) * 8 + 8 + 24
+    round_work = roofline.fs_message_work(roofline.fs_round_products(degree),
+                                          roofline.fs_permutations(32, degree + 1),
+                                          in_words, out_words)
+
+    v = limb.from_ints([spec.to_mont(rng.randrange(spec.p)) for _ in range(2)], "cuda")
+    c0 = limb.from_ints([spec.to_mont(rng.randrange(spec.p))], "cuda")[0]
+    scal, sponge = case["scal"][0].contiguous(), case["sponge"]
+    s2, sp2 = scal.clone(), sponge.clone()
+    cout = torch.zeros((4, 8), dtype=torch.int32, device="cuda")
+    coeff_ms = cuda_ms(torch, lambda: kfs.coeff_cuda(spec, v, s2, sp2, c0, cout, chm), 200)
+    cg = fs_coeff_outputs(torch, spec, v, scal, sponge, c0, plain=False)
+    coeff_plain_ms, cw = timed_once(
+        torch, lambda: fs_coeff_outputs(torch, spec, v, scal, sponge, c0, plain=True))
+    coeff_err = 0 if all(torch.equal(cg[key], cw[key]) for key in cg) else 1
+    coeff_work = roofline.fs_message_work(roofline.FS_COEFF_PRODUCTS,
+                                          roofline.fs_permutations(32, 3),
+                                          16 + 8 + kfs.SPONGE_WORDS + 8,
+                                          8 + kfs.SPONGE_WORDS + 32 + 8)
+    rows = []
+    for name, replaces, ms, plain_ms, err, work in (
+        ("fs_round_message", "plonkish_tpu/piop/fiat_shamir.py:314", round_ms, round_plain_ms,
+         round_err, round_work),
+        ("fs_coeff_message", "plonkish_tpu/piop/fiat_shamir.py:396", coeff_ms, coeff_plain_ms,
+         coeff_err, coeff_work),
+    ):
+        if err:
+            fail(f"K6 {name} differs from its plain version at the main path's shapes")
+        b_ms, b_by, b_src = roofline.bound_ms(*work, peaks)
+        rows.append({
+            "name": name, "route": "cuda", "source": "plonkish_tpu_torch/csrc/fiat_shamir.cuh",
+            "replaces": replaces, "launches": main_path[name], "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "path": "kzg", "counter": name,
+        })
+        log(f"[timing] K6 {name}: {ms * 1e3:.2f} us a launch (plain {plain_ms:.1f} ms, bound "
+            f"{b_ms * 1e3:.4f} us by {b_by} at the {b_src} rate; latency-bound: one thread), {main_path[name]} launches in the prove")
+    return rows
 
 
 def timing_new_instantiations(torch, k, gen, peaks):
@@ -1109,7 +1370,7 @@ def phase6_harness(k, launches, reset_launches):
         if not all(float(v) > 0 for v in rows[0][1:]):
             fail(f"the harness row of {name} holds no time: {added}")
         log(f"[harness] {name} row: {','.join(rows[0])} ms")
-    for name in PROVER_KERNELS + ("mont_mul_chain",):
+    for name in MSM_SUMCHECK_KERNELS + ("fs_round_message", "mont_mul_chain"):
         if harness_path[name] <= 0:
             fail(f"kernel {name} was not launched on the harness path")
     return harness_path
@@ -1420,7 +1681,7 @@ def phase9_univariate(torch, k, launches, reset_launches, shapes):
     del param
     prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_launches,
                     must=("msm_bucket_sums", "msm_window_sums"),
-                    must_not=("sumcheck_round", "sumcheck_fold"))
+                    must_not=("sumcheck_round", "sumcheck_fold") + FS_KERNELS)
     del backend, pp, vp, ci, circuit
     torch.cuda.empty_cache()
 
@@ -1599,6 +1860,51 @@ def phase11_sharded(torch, k, launches, reset_launches, shapes, ranks):
         if r["taken"].get("msm", 0) <= 0 or r["taken"].get("sum_check") != 2:
             fail(f"[{tag}] sharded_msm or the sharded sum-checks were not taken: {r['taken']}")
     log(f"[mesh2 gloo k={k}] both ranks' proofs equal phase 4's ({len(want)} bytes)")
+
+
+# ------------------------------------------------------ 12 device transcript
+
+def phase12_device_fs(torch, k, shapes, native):
+    """The device transcript at k on phase 4's circuit and params: (a) the
+    zero-check's per-round split with the host transcript and with the
+    device one (profile_zero_check), its device rounds enqueued under the
+    sync check; (b) the MSM bench (plonkish_tpu_torch.bench) at 2^k, in
+    process (after phase 6, whose harness measures the probe's peaks
+    itself), whose device point must equal the native one.  Phase 4 proves
+    with PLONKISH_TPU_DEVICE_FS=0 beside its device-transcript prove."""
+    import contextlib
+    import io
+
+    from plonkish_tpu_torch import bench, profile_zero_check
+
+    t0 = time.time()
+    prof = profile_zero_check.profile(k, "cuda", shapes["circuit"],
+                                      log=lambda line: log(f"[profile k={k}] {line}"),
+                                      sync_check=True, pp=shapes["pp"])
+    host, dev = prof["host_fs"], prof["device_fs"]
+    log(f"[profile k={k}] ({time.time() - t0:.1f}s) host transcript: rounds {host['rounds_ms']:.3f} "
+        f"ms (message {host['msg_ms']:.3f}, transcript {host['transcript_ms']:.3f}, fold "
+        f"{host['fold_ms']:.3f}; K3 {host['k3_ms']:.3f}, K4 {host['k4_ms']:.3f}), state init "
+        f"{host['init_ms']:.3f} ms; device transcript: rounds {dev['rounds_ms']:.3f} ms (enqueue "
+        f"{dev['enqueue_ms']:.3f} under set_sync_debug_mode(\"error\"), device "
+        f"{dev['device_ms']:.3f}, one transfer and replay {dev['replay_ms']:.3f}), state init "
+        f"{dev['init_ms']:.3f} ms; same challenges and evaluations")
+
+    thread, result = native
+    t0 = time.time()
+    thread.join()
+    if "error" in result:
+        fail(f"the native runtime did not build: {result['error']}")
+    log(f"[bench] native runtime built in {result['seconds']:.1f}s (waited "
+        f"{time.time() - t0:.1f}s)")
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        line = bench.main(["--msm-log2", str(k)])
+    log(f"[bench] {out.getvalue().strip()} ({time.time() - t0:.1f}s; the device point equals "
+        "the native one)")
+    if not line["value"] > 0:
+        fail(f"[bench] no throughput: {line}")
 
 
 def _phase11_rank(mesh, k, srs_path, ready, go, stop):

@@ -21,7 +21,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ... import parallel
+from ... import config, parallel
 from ...fields import limb
 from ...fields.host import Fp
 from ...fields.spec import FieldSpec
@@ -130,6 +130,10 @@ def lookup_h_polys(
         inv = limb.batch_inv(spec, both)
         n = len(input_poly)
         h = limb.sub(spec, inv[:n], limb.mont_mul(spec, inv[n:], m_poly.evals))
+        if config.sanity_checks():
+            # reference `sanity-check` feature: the h polys sum to 0 (prover.rs:245-247)
+            if limb.to_canonical_ints(spec, limb.sum_reduce(spec, h)[None])[0] != 0:
+                raise AssertionError("sanity: lookup h polys do not sum to 0")
         out.append(MLPoly(spec, h))
     return out
 
@@ -194,8 +198,15 @@ def permutation_z_polys(
     order = torch.as_tensor(bh.iter_array, device=device)  # nth -> b
     # v[t] = products[t % nc][order[1 + t // nc]] for t in 0 .. nc*n - nc - 2
     seq = products[:, :, order[1:]]  # [16, nc, n-1]
-    seq = seq.permute(0, 2, 1).reshape(limb.D, (n - 1) * nc)[:, : nc * n - nc - 1]
+    seq_full = seq.permute(0, 2, 1).reshape(limb.D, (n - 1) * nc)
+    seq = seq_full[:, : nc * n - nc - 1]
     cum = limb.d_prefix_mul(seq, c)
+    if config.sanity_checks():
+        # reference `sanity-check` feature: the grand product over every
+        # chunk and row closes to 1 (prover.rs:325-331)
+        last = limb.d_mul(cum[:, -1:], seq_full[:, -1:], c)
+        if limb.to_canonical_ints(spec, limb.pack(last))[0] != 1:
+            raise AssertionError("sanity: permutation grand product != 1")
     z_flat = torch.cat([
         torch.zeros((limb.D, nc), dtype=torch.int64, device=device),
         c["one"],

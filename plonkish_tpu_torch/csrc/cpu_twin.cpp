@@ -1,13 +1,14 @@
 // Host build of the kernels' arithmetic and per-thread bodies, for the CPU
 // tests only (tests/test_torch_csrc_cpu.py, tests/test_torch_grumpkin.py):
 // g++ compiles field.cuh, curve.cuh and the __host__ __device__ parts of
-// msm.cu, sumcheck.cu, probe.cu and ipa.cu, and each function below runs a kernel's threads one after
-// another.  No entry point of the package loads this library.  K3's
+// msm.cu, sumcheck.cu, probe.cu, ipa.cu and fiat_shamir.cu, and each function below runs a
+// kernel's threads one after another.  No entry point of the package loads this library.  K3's
 // generated kernels have their own host builds (kernels/sumcheck_gen.py).
 #include <stdint.h>
 
 #include <vector>
 
+#include "fiat_shamir.cu"
 #include "ipa.cu"
 #include "msm.cu"
 #include "probe.cu"
@@ -218,6 +219,33 @@ int twin_sumcheck_fold(const uint32_t* state, long long n_out,
     else
       return -1;
   }
+  return 0;
+}
+
+// K6: the one thread of each launch.
+int twin_fs_round(const uint32_t* sums, uint32_t* scal, uint32_t* sponge, const uint32_t* fixed,
+                  const uint32_t* rows, int degree, uint32_t* out, uint32_t* ch_mont,
+                  uint32_t* ids_next, int field, void* stream) {
+  (void)stream;
+  if (degree < 1 || degree > FS_MAX_DEGREE) return -1;
+  if (field == 0)
+    fs_round_message<Fr>(sums, scal, sponge, fixed, rows, degree, out, ch_mont, ids_next);
+  else if (field == 1)
+    fs_round_message<Fq>(sums, scal, sponge, fixed, rows, degree, out, ch_mont, ids_next);
+  else
+    return -1;
+  return 0;
+}
+
+int twin_fs_coeff(const uint32_t* v, uint32_t* scal, uint32_t* sponge, const uint32_t* c0_base,
+                  uint32_t* out, uint32_t* ch_mont, int field, void* stream) {
+  (void)stream;
+  if (field == 0)
+    fs_coeff_message<Fr>(v, scal, sponge, c0_base, out, ch_mont);
+  else if (field == 1)
+    fs_coeff_message<Fq>(v, scal, sponge, c0_base, out, ch_mont);
+  else
+    return -1;
   return 0;
 }
 

@@ -28,7 +28,8 @@ from typing import Optional
 PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-CUDA_SOURCES = ("ipa.cu", "msm.cu", "msm_grumpkin.cu", "probe.cu", "sumcheck.cu")
+CUDA_SOURCES = ("fiat_shamir.cu", "ipa.cu", "msm.cu", "msm_grumpkin.cu", "probe.cu",
+                "sumcheck.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -140,6 +141,7 @@ def build_host(src: pathlib.Path, out: pathlib.Path, opt: str = "-O2") -> pathli
 
 def build_cpu_twin() -> pathlib.Path:
     """g++ build of csrc/cpu_twin.cpp (the headers on the host), for tests."""
-    names = ["cpu_twin.cpp", "field.cuh", "curve.cuh", "msm.cuh", *CUDA_SOURCES]
+    names = ["cpu_twin.cpp", "field.cuh", "curve.cuh", "msm.cuh", "fiat_shamir.cuh",
+             *CUDA_SOURCES]
     return build_host(CSRC / "cpu_twin.cpp",
                       BUILD / f"libplonkish_cpu_twin_{_digest(names)}.so")

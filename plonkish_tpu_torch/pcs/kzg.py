@@ -18,7 +18,7 @@ from typing import List, Sequence
 
 import torch
 
-from .. import resolve_device
+from .. import config, resolve_device
 from ..curves.host import AffinePoint
 from ..curves.msm import fixed_base_msm, msm_affine, variable_base_msm
 from ..curves.pairing import G2Point, pairings_product_is_identity
@@ -153,6 +153,16 @@ class MultilinearKzg:
         spec = self.field_spec
         num_vars = poly.num_vars
         assert len(point) == num_vars
+        if config.sanity_checks():
+            # reference `sanity-check` feature (kzg.rs:286-296): the claimed
+            # commitment and evaluation must match the polynomial.  The
+            # additive batch open claims neither (comm and eval_ None); the
+            # JAX package compares its None eval and so refuses every
+            # batch open under the flag.
+            if comm is not None and self.commit(pp, poly) != comm:
+                raise AssertionError("sanity: kzg open comm mismatch")
+            if eval_ is not None and poly.evaluate(list(point)) != eval_:
+                raise AssertionError("sanity: kzg open eval mismatch")
         c = limb._consts(spec, poly.device)
         remainder = limb.unpack(poly.evals)
         quotient_comms: List[AffinePoint] = []  # var k-1 first

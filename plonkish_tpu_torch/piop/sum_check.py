@@ -7,6 +7,13 @@ coefficients (``CoefficientsProver``, the degree-2 batch-open rounds), the
 verifier squeezes a challenge on the host transcript, and every live table is
 folded with fix_var.
 
+On the card, with ``config.device_fs()`` on (the default), the transcript's
+sponge runs on the device instead (``DeviceFsRun``, piop/fiat_shamir.py): each
+round enqueues K3 -> K6 -> K4 with no host read and no blocking upload, the
+round messages come back in one transfer, and the host transcript is replayed
+from them (reference sum_check.py:1276-1495).  On the CPU the host loop stays
+the default.
+
 All live tables of a prove are one stacked Montgomery tensor ``int32[T, n, 8]``
 (natural hypercube order, sorted table keys as in the reference's jax path):
 the zero-check round message is one call of K3 (``kernels.sumcheck.round_evals``)
@@ -23,7 +30,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from .. import parallel
+from .. import config, parallel
 from ..fields import limb
 from ..fields.host import Fp, batch_invert
 from ..fields.spec import FieldSpec
@@ -43,6 +50,7 @@ from ..utils.expression import (
 )
 from ..utils.timer import span
 from ..utils.transcript import Keccak256Transcript
+from . import fiat_shamir as fs
 from . import tape as tape_mod
 
 
@@ -236,13 +244,28 @@ class ProverState:
     def next_round(self, sum_: Fp, challenge: Fp) -> None:
         self.sum = sum_
         self.identity_offset = self.identity_offset + challenge * (1 << self.round)
-        c = limb.const(self.spec, int(challenge), self.device)
-        self.stacked = ksc.fold(self.spec, self.stacked, c)
+        self.fold(limb.const(self.spec, int(challenge), self.device))
+
+    def fold(self, challenge: torch.Tensor) -> None:
+        """K4 at a Montgomery challenge on the device; the round advances.
+        The host's sum and identity offset are the caller's to advance."""
+        self.stacked = ksc.fold(self.spec, self.stacked, challenge)
         self.round += 1
         self.row0 //= 2
         if self.mesh is not None and self.stacked.shape[1] == 1:
             self.stacked = sharded.all_gather_cat(self.mesh, self.stacked, 1)
             self.mesh, self.row0 = None, 0
+
+    def pair0_schedule(self) -> List[int]:
+        """The global index of this rank's first pair in every round, from a
+        fresh state, as ``fold`` will move it (``identity_params``'s pair0)."""
+        out, row0, rows, mesh = [], self.row0, self.stacked.shape[1], self.mesh is not None
+        for _ in range(self.num_vars):
+            out.append(row0 // 2)
+            rows, row0 = rows // 2, row0 // 2
+            if mesh and rows == 1:
+                mesh, row0 = False, 0
+        return out
 
     def into_evals(self) -> List[Fp]:
         """Final evaluations of each input poly at the challenge point."""
@@ -262,6 +285,20 @@ def identity_params(spec: FieldSpec, round_: int, offset: Fp, device, pair0: int
     base = spec.to_mont((int(offset) + (1 << round_) + pair0 * (1 << (round_ + 1))) % spec.p)
     step = spec.to_mont((1 << round_) % spec.p)
     return limb.from_ints([mul, base, step], device)
+
+
+def identity_stack(spec: FieldSpec, pair0s: Sequence[int], device) -> torch.Tensor:
+    """K6's identity rows, one upload for a whole sum-check: row r is
+    (mul, base_add, step) of round r (a last row past the rounds closes the
+    stack), base_add = 2^r + pair0 * 2^(r+1) in Montgomery form, so that
+    round r's base is the device's offset + base_add (identity_params)."""
+    vals = []
+    for r in range(len(pair0s) + 1):
+        pair0 = pair0s[r] if r < len(pair0s) else 0
+        vals += [((1 << (r + 1)) * spec.r2_mod_p) % spec.p,
+                 spec.to_mont(((1 << r) + pair0 * (1 << (r + 1))) % spec.p),
+                 spec.to_mont((1 << r) % spec.p)]
+    return limb.from_ints(vals, device).reshape(len(pair0s) + 1, 3, limb.L)
 
 
 # ---------------------------------------------------------------------------
@@ -346,16 +383,18 @@ class EvaluationsProver:
             sumcheck_gen.kernel(instrs, t.num_regs, t.out_reg, len(state.table_keys),
                                 state.degree)
 
+    def round_sums(self, state: ProverState, ids: torch.Tensor) -> torch.Tensor:
+        """K3 at this round, summed over every rank: Montgomery [d, 8]."""
+        return state.all_reduce(ksc.round_evals(
+            state.spec, state.stacked, self.instrs, self.consts, self.tape.num_regs,
+            self.tape.out_reg, state.degree, ids,
+        ))
+
     def prove_round(self, state: ProverState) -> Evaluations:
         spec = state.spec
-        d = state.degree
         ids = identity_params(spec, state.round, state.identity_offset, state.device,
                               state.row0 // 2)
-        sums = state.all_reduce(ksc.round_evals(
-            spec, state.stacked, self.instrs, self.consts, self.tape.num_regs,
-            self.tape.out_reg, d, ids,
-        ))
-        vals = limb.to_canonical_ints(spec, sums)
+        vals = limb.to_canonical_ints(spec, self.round_sums(state, ids))
         evals = [Fp.zero(spec)] + [Fp(v, spec) for v in vals]
         evals[0] = state.sum - evals[1]
         return Evaluations(evals)
@@ -428,33 +467,142 @@ class CoefficientsProver:
             out.append((eq_idx, query.poly, int(scalar)))
         return out
 
+    def scalar_digits(self, state: ProverState) -> torch.Tensor:
+        """The flattened terms' scalars as Montgomery digits [16, terms] on
+        the state's device (one upload)."""
+        scalars = [scalar for *_, scalar in self.term_triples()]
+        return limb.unpack(limb.from_canonical_ints(state.spec, scalars)).to(state.device)
+
+    def round_sums(self, state: ProverState, scalars: torch.Tensor) -> torch.Tensor:
+        """The karatsuba sums (v0, v2) of this round over every rank,
+        Montgomery [2, 8]: v0 = sum of s * eq_lo * p_lo, v2 = sum of
+        s * (eq_hi - eq_lo) * (p_hi - p_lo) over the terms."""
+        c = limb._consts(state.spec, state.device)
+        acc0 = acc2 = None
+        for j, (eq_idx, poly_idx, _) in enumerate(self.term_triples()):
+            eq = limb.unpack(state.table(("eq_xy", eq_idx)))
+            p = limb.unpack(state.table(("poly", poly_idx, 0)))
+            eq_lo, eq_hi = eq[:, 0::2], eq[:, 1::2]
+            p_lo, p_hi = p[:, 0::2], p[:, 1::2]
+            s = scalars[:, j: j + 1]
+            lo = limb.d_sum(limb.d_mul(eq_lo, p_lo, c), c)
+            diff = limb.d_mul(limb.d_sub(eq_hi, eq_lo, c), limb.d_sub(p_hi, p_lo, c), c)
+            hi = limb.d_sum(diff, c)
+            t0, t2 = limb.d_mul(lo, s, c), limb.d_mul(hi, s, c)
+            acc0 = t0 if acc0 is None else limb.d_add(acc0, t0, c)
+            acc2 = t2 if acc2 is None else limb.d_add(acc2, t2, c)
+        return state.all_reduce(limb.pack(torch.cat([acc0, acc2], 1)))
+
     def prove_round(self, state: ProverState) -> Coefficients:
         spec = state.spec
         size = state.size
         c0 = Fp(size, spec) * self.constant
         c2 = Fp.zero(spec)
-        triples = self.term_triples()
-        if triples:
-            c = limb._consts(spec, state.device)
-            acc0 = acc2 = None
-            for eq_idx, poly_idx, scalar in triples:
-                eq = limb.unpack(state.table(("eq_xy", eq_idx)))
-                p = limb.unpack(state.table(("poly", poly_idx, 0)))
-                eq_lo, eq_hi = eq[:, 0::2], eq[:, 1::2]
-                p_lo, p_hi = p[:, 0::2], p[:, 1::2]
-                s = limb.d_const(spec, scalar, state.device)
-                lo = limb.d_sum(limb.d_mul(eq_lo, p_lo, c), c)
-                diff = limb.d_mul(limb.d_sub(eq_hi, eq_lo, c), limb.d_sub(p_hi, p_lo, c), c)
-                hi = limb.d_sum(diff, c)
-                t0, t2 = limb.d_mul(lo, s, c), limb.d_mul(hi, s, c)
-                acc0 = t0 if acc0 is None else limb.d_add(acc0, t0, c)
-                acc2 = t2 if acc2 is None else limb.d_add(acc2, t2, c)
-            sums = state.all_reduce(limb.pack(torch.cat([acc0, acc2], 1)))
+        if self.flattened:
+            sums = self.round_sums(state, self.scalar_digits(state))
             v0, v2 = limb.to_canonical_ints(spec, sums)
             c0 = c0 + Fp(v0, spec)
             c2 = c2 + Fp(v2, spec)
         c1 = state.sum - c0.double() - c2
         return Coefficients([c0, c1, c2])
+
+
+# ---------------------------------------------------------------------------
+# Device-resident Fiat-Shamir (reference sum_check.py:1276-1580)
+# ---------------------------------------------------------------------------
+
+def device_fs_eligible(prover) -> bool:
+    """The provers with a device-FS path: every EvaluationsProver, and a
+    CoefficientsProver with terms (reference sum_check.py:1242-1257)."""
+    if isinstance(prover, EvaluationsProver):
+        return True
+    return isinstance(prover, CoefficientsProver) and bool(prover.flattened)
+
+
+def device_fs_selected(state: ProverState, prover) -> bool:
+    """The device FS runs where the state is on the card and
+    ``config.device_fs()`` is on (the reference's ``not limb.IS_CPP and
+    config.device_fs()``, sum_check.py:1241)."""
+    return state.stacked.is_cuda and config.device_fs() and device_fs_eligible(prover)
+
+
+class DeviceFsRun:
+    """One sum-check with its transcript's sponge on the state's device.
+
+    The constructor makes every upload the rounds need, before the first
+    launch: the sponge (from the host transcript), the claimed sum and the
+    identity offset, the Lagrange constants and the identity stack (an
+    Evaluations sum-check), or the terms' scalars and each round's c0 base (a
+    Coefficients one), and the buffers K6 writes.  ``enqueue`` then launches
+    each round's K3 (or the plain-torch (v0, v2) sums), K6 and K4 with no host
+    read and no blocking upload; ``replay`` brings every message and
+    challenge back in one transfer and replays them into the host
+    transcript."""
+
+    def __init__(self, state: ProverState, prover, transcript: Keccak256Transcript):
+        assert state.round == 0, "a device-FS run starts from a fresh state"
+        spec, dev, k = state.spec, state.device, state.num_vars
+        self.state, self.prover = state, prover
+        self.coeff = isinstance(prover, CoefficientsProver)
+        self.message_cls = Coefficients if self.coeff else Evaluations
+        self.width = 3 if self.coeff else state.degree + 1  # message elements
+        self.sponge = fs.sponge_words(transcript, dev)
+        limb._consts(spec, dev)  # the field layer's constants, before the rounds
+        if self.coeff:
+            self.scal = limb.const(spec, int(state.sum), dev)
+            self.scalars = prover.scalar_digits(state)
+            sizes = [1 << (k - r - 1) for r in range(k)]
+            self.c0_base = limb.from_ints(
+                [spec.to_mont(int(Fp(size, spec) * prover.constant)) for size in sizes], dev)
+        else:
+            pair0s = state.pair0_schedule()
+            self.scal = limb.from_ints([spec.to_mont(int(state.sum)),
+                                        spec.to_mont(int(state.identity_offset))], dev)
+            self.fixed = fs.lagrange_constants(spec, state.degree, dev)
+            self.rows = identity_stack(spec, pair0s, dev)
+            self.ids = identity_params(spec, 0, state.identity_offset, dev, pair0s[0])
+        self.out = torch.empty((k, self.width + 1, limb.L), dtype=torch.int32, device=dev)
+        self.ch_mont = torch.empty((limb.L,), dtype=torch.int32, device=dev)
+
+    def enqueue(self) -> None:
+        """Every round, each a K3 (or (v0, v2)) -> K6 -> K4 launch sequence."""
+        state, prover, spec = self.state, self.prover, self.state.spec
+        for r in range(state.num_vars):
+            if self.coeff:
+                fs.coeff_message(spec, prover.round_sums(state, self.scalars), self.scal,
+                                 self.sponge, self.c0_base[r], self.out[r], self.ch_mont)
+            else:
+                fs.round_message(spec, state.degree, prover.round_sums(state, self.ids),
+                                 self.scal, self.sponge, self.fixed, self.rows[r: r + 2],
+                                 self.out[r], self.ch_mont, self.ids)
+            state.fold(self.ch_mont)
+
+    def replay(self, aux, transcript: Keccak256Transcript) -> List[Fp]:
+        """One device-to-host transfer of every message and challenge, then
+        the host transcript replayed from them; a host challenge that differs
+        from the device's raises ``ValueError`` (an unverifiable proof
+        otherwise).  The host's sum and identity offset advance as the host
+        loop advances them."""
+        state, spec, w = self.state, self.state.spec, self.width
+        vals = limb.to_ints(self.out)
+        challenges: List[Fp] = []
+        for round_ in range(state.num_vars):
+            row = vals[round_ * (w + 1): (round_ + 1) * (w + 1)]
+            msg = self.message_cls([Fp(v, spec) for v in row[:w]])
+            if config.sanity_checks():
+                assert msg.sum() == state.sum, (
+                    f"sum-check round {round_}: message sum "
+                    f"{msg.sum()} != claimed {state.sum}"
+                )
+            msg.write(transcript)
+            challenge = transcript.squeeze_challenge()
+            if int(challenge) != row[w]:
+                raise ValueError(
+                    f"device Fiat-Shamir diverged from host transcript at round {round_}")
+            challenges.append(challenge)
+            state.sum = msg.evaluate(aux, challenge)
+            state.identity_offset = state.identity_offset + challenge * (1 << round_)
+        return challenges
 
 
 # ---------------------------------------------------------------------------
@@ -488,9 +636,20 @@ class ClassicSumCheck:
             state = ProverState(spec, num_vars, sum_, virtual_poly)
             prover = self.prover_cls(state)
             aux = self.message_cls.auxiliary(state.degree, spec)
+            if device_fs_selected(state, prover):
+                run = DeviceFsRun(state, prover, transcript)
+                run.enqueue()
+                return run.replay(aux, transcript), state.into_evals()
             challenges = []
             for round_ in range(num_vars):
                 msg = prover.prove_round(state)
+                if config.sanity_checks():
+                    # reference `sanity-check` feature (classic/eval.rs debug
+                    # assertions): the round polynomial carries the claimed sum
+                    assert msg.sum() == state.sum, (
+                        f"sum-check round {round_}: message sum "
+                        f"{msg.sum()} != claimed {state.sum}"
+                    )
                 msg.write(transcript)
                 challenge = transcript.squeeze_challenge()
                 challenges.append(challenge)

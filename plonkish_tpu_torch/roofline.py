@@ -16,8 +16,9 @@ published FP32 rate) and the one kernel K5 measures in this process
 share uses the larger of the two and says which (``imad_rate``).
 
 The counts are the port's algorithms': sorted Pippenger buckets (K1, K2), the
-tape-interpreting round kernel (K3) and the fold (K4); the IPA base fold's
-is the least its function needs (``base_fold_work``).
+tape-interpreting round kernel (K3), the fold (K4) and the round message
+(K6, whose Keccak-f logic operations are counted beside its products); the
+IPA base fold's is the least its function needs (``base_fold_work``).
 """
 
 from __future__ import annotations
@@ -105,6 +106,32 @@ def base_fold_work(curve, n: int, xi: int) -> Tuple[int, int]:
     p = curve.base.p
     inversion = (p - 2).bit_length() + bin(p - 2).count("1")
     return (n * per_point + inversion) * FE_MUL_IMAD, n * 3 * 2 * FE_BYTES
+
+
+KECCAK_ROUND_OPS = 150  # 64-bit xor, and-not and rotate operations a round of keccak-f
+FS_COEFF_PRODUCTS = 6  # three from Montgomery form, one into it, two in the next sum
+
+
+def fs_round_products(degree: int) -> int:
+    """K6's products in one Evaluations round of `degree`: d + 1 out of
+    Montgomery form, one into it, d + 1 suffix products, four a point for
+    the Lagrange form (prefix, basis, weight, message), one for the offset."""
+    return 6 * (degree + 1) + 2
+
+
+def fs_permutations(pending: int, elements: int) -> int:
+    """Keccak-f permutations of absorbing `elements` 32-byte reprs onto
+    `pending` buffered bytes, then the squeeze."""
+    return (pending + 32 * elements) // 136 + 1
+
+
+def fs_message_work(products: int, permutations: int, in_words: int,
+                    out_words: int) -> Tuple[int, int]:
+    """K6: its products, and each permutation's 24 rounds of 64-bit logic
+    operations counted as two 32-bit operations each; every input word read
+    once and every output word written once."""
+    ops = products * FE_MUL_IMAD + permutations * 24 * KECCAK_ROUND_OPS * 2
+    return ops, 4 * (in_words + out_words)
 
 
 def chain_work(n: int, chain: int) -> Tuple[int, int]:

@@ -11,11 +11,12 @@ harness.
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 from typing import List, Tuple
 
-_enabled = os.environ.get("PLONKISH_TPU_TIMER", "0") == "1"
+from .. import config
+
+_enabled = config.timer_enabled()
 _depth = 0
 _trace: List[Tuple[str, int, float]] = []
 # Called at both ends of a span when set (torch.cuda.synchronize on the card),

@@ -125,6 +125,61 @@ def test_probe_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_round_message_kernel_matches_plain(cuda, field):
+    """K6 (csrc/fiat_shamir.cu) against its plain version: degrees 1, 3, 5
+    from sponges with 0, 32, 80 and 120 bytes pending, and the Coefficients
+    round, as tests/test_torch_fiat_shamir.py holds the g++ twin."""
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES
+    from plonkish_tpu_torch.kernels import fiat_shamir as kfs
+    from plonkish_tpu_torch.piop import fiat_shamir as fs
+    from test_torch_device_fs import k6_round_case
+
+    spec = BN254_FR if field == "fr" else BN254_FQ
+    for degree in (1, 3, 5):
+        for pending in (0, 32, 80, 120):
+            case = {k: v.to(cuda) for k, v in k6_round_case(spec, degree, pending, degree).items()}
+            outs = []
+            for plain in (False, True):
+                b = {k: v.clone() for k, v in case.items()}
+                out = torch.zeros((degree + 2, 8), dtype=torch.int32, device=cuda)
+                chm = torch.zeros(8, dtype=torch.int32, device=cuda)
+                ids = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
+                args = (b["sums"], b["scal"], b["sponge"], b["fixed"], b["rows"], out, chm, ids)
+                before = LAUNCHES["fs_round_message"]
+                (fs.round_message_plain if plain else fs.round_message)(spec, degree, *args)
+                assert LAUNCHES["fs_round_message"] == before + (0 if plain else 1)
+                outs.append([b["scal"], b["sponge"], out, chm, ids])
+            assert all(torch.equal(g, w) for g, w in zip(*outs)), (degree, pending)
+    case = {k: v.to(cuda) for k, v in k6_round_case(spec, 3, 80, 7).items()}
+    outs = []
+    for fn in (kfs.coeff_cuda, fs.coeff_message_plain):
+        scal, sponge = case["scal"][0].clone(), case["sponge"].clone()
+        out = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+        chm = torch.zeros(8, dtype=torch.int32, device=cuda)
+        fn(spec, case["sums"][:2].contiguous(), scal, sponge, case["scal"][1], out, chm)
+        outs.append([scal, sponge, out, chm])
+    assert all(torch.equal(g, w) for g, w in zip(*outs))
+
+
+@pytest.mark.gpu
+def test_device_fs_zero_check_has_no_host_read(cuda):
+    """The device-transcript zero-check at k = 12 enqueues every round under
+    set_sync_debug_mode("error") and gives the host loop's challenges."""
+    from plonkish_tpu_torch.fields.spec import BN254_FR as S
+    from plonkish_tpu_torch.profile_zero_check import device_fs, host_fs, zero_check_polys
+    from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
+
+    k = 12
+    vp = zero_check_polys(S, k, rand_vanilla_plonk_circuit(S, k, random.Random(1),
+                                                           random.Random(2)), cuda)
+    _, host_ch, host_ev = host_fs(S, k, vp, cuda, lambda line: None)
+    _, dev_ch, dev_ev = device_fs(S, k, vp, cuda, lambda line: None, sync_check=True)
+    assert dev_ch == host_ch and dev_ev == host_ev
+
+
+@pytest.mark.gpu
 def test_golden_k3_on_the_card(cuda):
     from plonkish_tpu_torch.backend.hyperplonk import HyperPlonk
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -139,7 +194,8 @@ def test_golden_k3_on_the_card(cuda):
     reset_launches()
     tr = Keccak256Transcript(BN254_FR)
     backend.prove(pp, circuit, tr)
-    prover_kernels = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+    prover_kernels = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold",
+                      "fs_round_message", "fs_coeff_message")
     assert all(LAUNCHES[name] > 0 for name in prover_kernels), LAUNCHES
     proof = tr.into_proof()
     assert proof == (GOLDEN / "hyperplonk_kzg_k3.bin").read_bytes()

@@ -121,6 +121,21 @@ if __name__ == "__main__":
 """
 
 
+DEVICE_FS_PROBE = r"""
+import sys
+from plonkish_tpu_torch import bench, config, profile_zero_check
+from plonkish_tpu_torch.piop import sum_check
+
+sum_check.device_fs_selected = lambda state, prover: sum_check.device_fs_eligible(prover)
+profile_zero_check.profile(4, "cpu", log=lambda line: None)
+bench.main(["--device", "cpu", "--msm-log2", "6"])
+assert config.device_fs()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "plonkish_tpu" or m.startswith("plonkish_tpu."))
+print("LOADED", bad)
+"""
+
+
 def _loads_no_jax(probe):
     out = subprocess.run(
         [sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -142,6 +157,12 @@ def test_univariate_and_models_load_no_jax():
     """A univariate PLONK prove and verify at k = 3, and the aggregation and
     sha256 circuits built through the frontend."""
     _loads_no_jax(UNIVARIATE_PROBE)
+
+
+def test_device_fs_profile_and_bench_load_no_jax():
+    """The zero-check profiler (host and device transcripts), the device-FS
+    sum-check, config, and the bench with its native baseline."""
+    _loads_no_jax(DEVICE_FS_PROBE)
 
 
 def test_sharded_prove_loads_no_jax(tmp_path):
@@ -206,3 +227,14 @@ def test_wrappers_take_plain_only_on_cpu():
     meta = state.to("meta")
     with pytest.raises((RuntimeError, ValueError, NotImplementedError)):
         ksc.fold(BN254_FR, meta, limb.const(BN254_FR, 3))
+    from plonkish_tpu_torch.piop import fiat_shamir as fs
+
+    def buf(*shape):
+        return torch.zeros((*shape, 8), dtype=torch.int32, device="meta")
+
+    with pytest.raises((RuntimeError, ValueError, NotImplementedError)):
+        fs.round_message(BN254_FR, 3, buf(3), buf(2), torch.zeros(85, dtype=torch.int32,
+                         device="meta"), buf(8), buf(2, 3), buf(5), buf(), buf(3))
+    with pytest.raises((RuntimeError, ValueError, NotImplementedError)):
+        fs.coeff_message(BN254_FR, buf(2), buf(), torch.zeros(85, dtype=torch.int32,
+                         device="meta"), buf(), buf(4), buf())

@@ -22,8 +22,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    phases 2 and 3, and are printed and held against their plain version
    (as phase 2 holds the others) once they are built, before phase 4.  The
    library holds K6, the device transcript's round message
-   (csrc/fiat_shamir.cu); the native host runtime of the bench's baseline
-   (csrc/field_native.cpp, g++) builds in a thread until phase 12;
+   (csrc/fiat_shamir.cu), whose four kernels must have a 0-byte stack frame
+   and no spills, and the IPA fold's ladder and affine conversion, each
+   printed with its registers; the native host runtime of the bench's
+   baseline (csrc/field_native.cpp, g++) builds in a thread until phase 12;
 2. every kernel against its plain PyTorch version on the card, on the same
    inputs, exact equality required (MSM K1+K2 on BN254 at 2^12 points with
    edge cases, at 2^16 random points and at 2^16 selector-like scalars in
@@ -31,11 +33,15 @@ Phases, each printed on its own line; any failure exits non-zero:
    random; one variable_base_msm at 2^16 enqueued under
    torch.cuda.set_sync_debug_mode("error") up to its one-point read;
    sum-check round K3 for every expression of phase 1 at 2^16 pairs and at
-   one pair, fold K4 over Fr and Fq, the IPA base fold at
-   2^12 points with identities for xi in {0, 1, q - 1, random}, the
-   mont_mul chain probe K5 with both multipliers at 2^16 elements; K6 over
-   Fr and Fq at degrees 1, 3 and 5 from sponges with 0, 32, 80 and 120 bytes
-   pending, and ten chained rounds with the Coefficients round beside each);
+   one pair, fold K4 over Fr and Fq, the IPA base fold (ladder and affine
+   conversion) at 2^12 + 3 points with identities for xi in {0, 1, q - 1,
+   random, lambda, -lambda} and on a chunk of the batch inversion whose sums
+   are all the identity, and for four xi with GLV halves of each pair of
+   signs on 35 points against the host's arithmetic,
+   the mont_mul chain probe K5 with both multipliers at 2^16 elements; K6
+   over Fr and Fq at degrees 1, 2, 3, 5, 9 and 32 from sponges with 0, 32,
+   80, 120 and 128 bytes pending (0 and 128 at degree 32), and ten chained
+   rounds with the Coefficients round beside each);
 3. the nine frozen HyperPlonk proofs of tests/golden (KZG k3, k5 and lookup
    k5; Gemini, Zeromorph, IPA and Hyrax k5; Brakedown k3 and k5) and the
    Protostar decider proof (KZG, k3, after two folds) produced on the card,
@@ -56,7 +62,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    2^20 and at 2^10 (its fixed cost), and K3 summed over the 20 rounds of
    the k = 20 zero-check with K4 between rounds; then the Grumpkin K1 and K2
    at 2^20 points of the IPA basis, K3 and K4 over Fq at the k = 20 shapes
-   and the IPA base fold at 2^19 points; K6 a launch, both rounds;
+   and the IPA base fold's two kernels at 2^19 points (beside the whole
+   fold's bound); K5 at one element, 16 deep and with no product (one
+   product's latency, the launch floor); K6 a launch, both rounds, beside
+   its latency bound;
 6. the bench harness in process (plonkish_tpu_torch.benchmark): the
    zero_check system at k = 18 (20 until phase 11 came) and the pcs kzg
    system at k = 20, whose rows are read back from
@@ -144,6 +153,13 @@ MSM_SUMCHECK_KERNELS = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", 
 # K6, the device transcript's round message: the zero-check's rounds and the
 # batch open's degree-2 rounds
 FS_KERNELS = ("fs_round_message", "fs_coeff_message")
+# phase 2's K6 cases: degree 9 is the widest of phase 1's tapes, 32 the
+# widest K6 takes (checked from 0 and 128 pending bytes only: its plain
+# version takes a second a case); 128 pending bytes fill the rate with the
+# first lane
+FS_DEGREES = (1, 2, 3, 5, 9, 32)
+FS_PENDING = (0, 32, 80, 120, 128)
+FS_WIDEST_PENDING = (0, 128)
 PROVER_KERNELS = MSM_SUMCHECK_KERNELS + FS_KERNELS
 # the decider tapes of phase 8, the harness's sangria and the IPA path:
 # (name, scheme, circuit of models.circuits)
@@ -153,7 +169,8 @@ DECIDERS = (
     ("sangria_vanilla", "sangria", "rand_vanilla_plonk_circuit"),
     ("sangria_lookup", "sangria", "rand_vanilla_plonk_with_lookup_circuit"),
 )
-IPA_KERNELS = PROVER_KERNELS + ("ipa_base_fold",)
+# the IPA base fold is two launches: the ladder and the affine conversion
+IPA_KERNELS = PROVER_KERNELS + ("ipa_base_fold", "ipa_fold_affine")
 K_SHA256 = 16  # phase 10's sha256 circuit: 468 blocks (k = 20 would be 7,489)
 # harness rows of 9 and 10
 K_UNIVARIATE_ROW, K_AGGREGATION_ROW, K_SHA256_ROW = 16, 18, 14
@@ -213,6 +230,7 @@ def main() -> int:
     for line in build.ptxas_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
+    check_library_frames(build.ptxas_log)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -310,6 +328,32 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, launches=100, reps=5):
+    """ms a call of `fn`, its `launches` calls captured in one CUDA graph
+    and replayed: the device's time without the host's enqueue, for kernels
+    that take less time than a Python call takes to launch them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * launches)
 
 
 def affine_equal(torch, curve, a, b):
@@ -507,6 +551,18 @@ def msm_inputs(torch, n, gen, kind, curve=None):
     return curve, bases, scalars
 
 
+def xi_with_signs(curve, s1, s2):
+    """A random challenge whose GLV halves (k1, k2) have the signs s1, s2."""
+    from plonkish_tpu_torch.curves.device import _glv_split
+
+    rng = random.Random(30 + 2 * s1 + s2)
+    while True:
+        xi = rng.randrange(curve.scalar.p)
+        k1, k2 = _glv_split(curve, xi)
+        if (k1 > 0) - (k1 < 0) == s1 and (k2 > 0) - (k2 < 0) == s2:
+            return xi
+
+
 def timed_once(torch, fn):
     """(ms of one call by CUDA events, its result): for plain versions that
     take seconds at full size."""
@@ -537,6 +593,47 @@ def msm_without_sync(torch, curve, scalars, bases):
 
 
 # ------------------------------------------------------ 1 K3 builds
+
+def ptxas_frames(text):
+    """{kernel: (stack frame, spill stores, spill loads, registers)} from a
+    `ptxas -v` log."""
+    frames, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            frames[name] = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in frames and len(frames[name]) == 3:
+            frames[name] += (int(m.group(1)),)
+            name = None
+    return frames
+
+
+def check_library_frames(text):
+    """The IPA fold's and K6's kernels as ptxas built them; K6's four (two
+    rounds, two fields) must keep everything in registers: no stack frame,
+    no spills."""
+    frames = ptxas_frames(text)
+    k6 = 0
+    for name, frame in sorted(frames.items()):
+        if not any(k in name for k in ("ipa_fold_", "fs_round_kernel", "fs_coeff_kernel")):
+            continue
+        regs = frame[3] if len(frame) > 3 else "?"
+        log(f"[build] {name}: {regs} registers, {frame[0]} bytes stack frame, {frame[1]} bytes "
+            f"spill stores, {frame[2]} bytes spill loads")
+        if "fs_" in name:
+            k6 += 1
+            if frame[:3] != (0, 0, 0):
+                fail(f"K6 {name} has a stack frame or spills: {frame}")
+    if k6 != 4:
+        fail(f"ptxas reported {k6} K6 kernels, not 4")
+
 
 def phase1_round_kernels(torch):
     """K3 generated and built for every expression this script runs, one nvcc
@@ -683,22 +780,50 @@ def phase2_kernels(torch, structures):
         log(f"[kernels] K4 fold over {spec.name}, {stacked.shape[0]} tables x {stacked.shape[1]} "
             "rows: 0 mismatches")
 
-    # the IPA base fold: identities among L and R, xi at its edges
+    # the IPA base fold against its plain version: identities among L and R,
+    # n one past a chunk of the batch inversion, xi at its edges, lambda
+    # (k1 = 0) and at random; the conversion also on the plain ladder's points
     t0 = time.time()
     gc = GRUMPKIN_G1
-    _, pts, _ = msm_inputs(torch, 1 << 13, gen, "random", gc)
+    n = (1 << 12) + 3
+    _, pts, _ = msm_inputs(torch, 2 * n, gen, "random", gc)
     pts[5:9] = 0
-    pts[(1 << 12) + 7: (1 << 12) + 11] = 0
-    left, right = pts[: 1 << 12].contiguous(), pts[1 << 12:].contiguous()
+    pts[n + 7: n + 11] = 0
+    left, right = pts[:n].contiguous(), pts[n:].contiguous()
     right[20] = left[20]  # L + R with L = R
-    xis = (0, 1, gc.scalar.p - 1, random.Random(5).randrange(gc.scalar.p))
+    lam = cdev._endomorphism(gc)[1]
+    xis = (0, 1, gc.scalar.p - 1, random.Random(5).randrange(gc.scalar.p), lam, gc.scalar.p - lam)
     for xi in xis:
-        if not torch.equal(kipa.base_fold_cuda(gc, left, right, xi),
-                           kipa.base_fold_plain(gc, left, right, xi)):
+        plain_jac = kipa.ladder_plain(gc, left, right, xi)
+        want = kipa.affine_plain(gc, plain_jac)
+        if not torch.equal(kipa.base_fold_cuda(gc, left, right, xi), want):
             fail(f"the IPA base fold differs from its plain version for xi of "
-                 f"{xi.bit_length()} bits")
-    log(f"[kernels] IPA base fold, {left.shape[0]} points with identities, xi in 0, 1, q - 1 "
-        f"and at random: 0 mismatches ({time.time() - t0:.1f}s)")
+                 f"{xi.bit_length()} bits (GLV halves {cdev._glv_split(gc, xi)})")
+        if not torch.equal(kipa.affine_cuda(gc, plain_jac), want):
+            fail("the IPA fold's affine conversion differs from its plain version")
+    # GLV halves of each pair of signs, on a chunk and 3 points more, against
+    # the host's arithmetic (each plain ladder of a 126-bit half takes seconds)
+    m = kipa.FOLD_CHUNK + 3
+    lh, rh = (cdev.affine_to_host(gc, t[:m].cpu()) for t in (left, right))
+    for s1 in (1, -1):
+        for s2 in (1, -1):
+            xi = xi_with_signs(gc, s1, s2)
+            got = kipa.base_fold_cuda(gc, left[:m].contiguous(), right[:m].contiguous(), xi)
+            if cdev.affine_to_host(gc, got.cpu()) != [a + b.scalar_mul(xi) for a, b in zip(lh, rh)]:
+                fail(f"the IPA base fold differs from the host's arithmetic for GLV halves of "
+                     f"signs {s1}, {s2}")
+    # a whole chunk of identities: L = -lambda R over the first chunk
+    chunk = kipa.FOLD_CHUNK
+    left[:chunk] = cdev.jac_to_affine(gc, cdev.unpack_jac(cdev.scalar_mul_const(
+        gc, right[:chunk].contiguous(), gc.scalar.p - lam)))
+    got = kipa.base_fold_cuda(gc, left, right, lam)
+    if not (torch.equal(got, kipa.base_fold_plain(gc, left, right, lam))
+            and not got[:chunk].any()):
+        fail("the IPA base fold differs from its plain version on a chunk of identities")
+    log(f"[kernels] IPA base fold (ladder and affine conversion), {n} points with "
+        f"identities, xi in 0, 1, q - 1, lambda, -lambda and at random, a chunk of {chunk} "
+        f"identities, against the plain version; GLV halves of each pair of signs on {m} "
+        f"points against the host: 0 mismatches ({time.time() - t0:.1f}s)")
 
     a, b = probe_inputs(torch, BN254_FR, 1 << 16, gen)
     want = kprobe.mont_mul_chain_plain(BN254_FR, a, b, 16, "u32")
@@ -797,11 +922,13 @@ def fs_coeff_outputs(torch, spec, v, scal, sponge, c0_base, plain):
 
 
 def phase2_round_message(torch):
-    """K6 against its plain version on the card: both fields, degrees 1, 3
-    and 5, sponges entered with 0, 32, 80 and 120 pending bytes (absorbs that
-    straddle the 136-byte rate), and ten chained rounds, each from the last
-    one's sponge, sum, offset and identity rows; the Coefficients round from
-    each chained sponge."""
+    """K6 against its plain version on the card: both fields, degrees 1, 2,
+    3, 5, 9 (the widest tape of phase 1) and 32 (the widest K6 takes: lane 0
+    holds two terms; from 0 and 128 pending bytes), sponges entered with 0,
+    32, 80, 120 and 128 pending bytes (absorbs that straddle the 136-byte
+    rate, and one whose first lane fills it), and ten chained rounds, each from the last one's sponge, sum,
+    offset and identity rows; the Coefficients round from each chained
+    sponge."""
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
     from plonkish_tpu_torch.piop.sum_check import identity_stack
@@ -810,8 +937,8 @@ def phase2_round_message(torch):
     rng = random.Random(12)
     cases = 0
     for spec in (BN254_FR, BN254_FQ):
-        for degree in (1, 3, 5):
-            for pending in (0, 32, 80, 120):
+        for degree in FS_DEGREES:
+            for pending in FS_PENDING if degree < 32 else FS_WIDEST_PENDING:
                 case = fs_round_case(torch, spec, degree, pending, rng)
                 got = fs_round_outputs(torch, spec, degree, case, plain=False)
                 want = fs_round_outputs(torch, spec, degree, case, plain=True)
@@ -843,9 +970,10 @@ def phase2_round_message(torch):
                          f"at chained round {r}: {key}")
             state.update(sponge=got["sponge"], scal=got["scal"])
             cases += 2
-    log(f"[kernels] K6 round message over Fr and Fq, degrees 1, 3, 5, sponges with 0, 32, 80 "
-        f"and 120 bytes pending, ten chained rounds with the Coefficients round beside each: "
-        f"0 mismatches in {cases} cases ({time.time() - t0:.1f}s)")
+    log(f"[kernels] K6 round message over Fr and Fq, degrees {FS_DEGREES}, sponges with "
+        f"{FS_PENDING} bytes pending ({FS_WIDEST_PENDING} at degree 32), ten chained rounds "
+        f"with the Coefficients round beside each: 0 mismatches in {cases} cases "
+        f"({time.time() - t0:.1f}s)")
 
 
 # ------------------------------------------------------ 3 golden proofs
@@ -1089,6 +1217,16 @@ def phase5_timing(torch, shapes, main_path):
         torch, lambda: kprobe.mont_mul_chain_plain(BN254_FR, pa, pb, pchain, "u32"))
     k5_err = 0 if torch.equal(k5_out, k5_plain) and torch.equal(k5_f32, k5_plain) else 1
     k5_ms, k5_f32_ms = best["ms"], peaks["best"]["f32"]["ms"]
+    # K5 at one element, in a CUDA graph: one product's latency (16 deep less
+    # the launch with no product, over 16), which K6's latency bound is read
+    # against
+    one_a, one_b = pa[:1].contiguous(), pb[:1].contiguous()
+    one_ms = {c: graph_ms(torch, lambda: kprobe.mont_mul_chain_cuda(
+        BN254_FR, one_a, one_b, c, "u32", 1, 32)) for c in (0, pchain)}
+    product_s = (one_ms[pchain] - one_ms[0]) / pchain * 1e-3
+    log(f"[timing] K5 at one element: {pchain} deep {one_ms[pchain] * 1e3:.3f} us, no product "
+        f"{one_ms[0] * 1e3:.3f} us (the launch floor): one product's latency "
+        f"{product_s * 1e9:.1f} ns")
     rate, source = roofline.imad_rate(peaks)
     log(f"[peaks] {peaks['card']}: fe_mul {peaks['fe_mul_per_s'] / 1e9:.3f} G/s "
         f"({best['per_thread']} per thread, blocks of {best['threads']}), fe_mul_f32 "
@@ -1131,7 +1269,8 @@ def phase5_timing(torch, shapes, main_path):
         f"{round_bounds[0]:.3f} ms); per round {[round(v, 4) for v in per_round]}")
 
     new_rows = timing_new_instantiations(torch, k, gen, peaks)
-    fs_rows = timing_round_message(torch, state.degree, peaks, main_path)
+    fs_rows = timing_round_message(torch, state.degree, peaks, main_path, product_s,
+                                   one_ms[0])
 
     rows_out = []
     for name, source_file, replaces, ms, plain_ms, err, work in (
@@ -1169,12 +1308,15 @@ def phase5_timing(torch, shapes, main_path):
     return rows_out + fs_rows + new_rows
 
 
-def timing_round_message(torch, degree, peaks, main_path):
+def timing_round_message(torch, degree, peaks, main_path, product_s, floor_ms):
     """K6 at the main path's shapes (the zero-check's degree over Fr, its
     sponge in the steady state of 32 bytes pending; the batch open's
     Coefficients round), each launch on the buffers the last one advanced,
-    against its plain version once on the same inputs.  Rows of the kernels
-    line; their launches are read on the main path."""
+    timed in a CUDA graph (and launched one by one, which times the host's
+    enqueue), against its plain version once on the same inputs, beside its latency
+    bound (roofline.fs_latency_ms at `product_s`, one product's latency)
+    and the launch floor (K5 at one element with no product).  Rows of the
+    kernels line; their launches are read on the main path."""
     from plonkish_tpu_torch import roofline
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -1187,7 +1329,10 @@ def timing_round_message(torch, degree, peaks, main_path):
     chm = torch.zeros(8, dtype=torch.int32, device="cuda")
     ids = torch.zeros((3, 8), dtype=torch.int32, device="cuda")
     bufs = {k: v.clone() for k, v in case.items()}
-    round_ms = cuda_ms(torch, lambda: kfs.round_cuda(
+    round_ms = graph_ms(torch, lambda: kfs.round_cuda(
+        spec, degree, bufs["sums"], bufs["scal"], bufs["sponge"], bufs["fixed"], bufs["rows"],
+        out, chm, ids))
+    round_host_ms = cuda_ms(torch, lambda: kfs.round_cuda(
         spec, degree, bufs["sums"], bufs["scal"], bufs["sponge"], bufs["fixed"], bufs["rows"],
         out, chm, ids), 200)
     got = fs_round_outputs(torch, spec, degree, case, plain=False)
@@ -1205,7 +1350,8 @@ def timing_round_message(torch, degree, peaks, main_path):
     scal, sponge = case["scal"][0].contiguous(), case["sponge"]
     s2, sp2 = scal.clone(), sponge.clone()
     cout = torch.zeros((4, 8), dtype=torch.int32, device="cuda")
-    coeff_ms = cuda_ms(torch, lambda: kfs.coeff_cuda(spec, v, s2, sp2, c0, cout, chm), 200)
+    coeff_ms = graph_ms(torch, lambda: kfs.coeff_cuda(spec, v, s2, sp2, c0, cout, chm))
+    coeff_host_ms = cuda_ms(torch, lambda: kfs.coeff_cuda(spec, v, s2, sp2, c0, cout, chm), 200)
     cg = fs_coeff_outputs(torch, spec, v, scal, sponge, c0, plain=False)
     coeff_plain_ms, cw = timed_once(
         torch, lambda: fs_coeff_outputs(torch, spec, v, scal, sponge, c0, plain=True))
@@ -1214,24 +1360,35 @@ def timing_round_message(torch, degree, peaks, main_path):
                                           roofline.fs_permutations(32, 3),
                                           16 + 8 + kfs.SPONGE_WORDS + 8,
                                           8 + kfs.SPONGE_WORDS + 32 + 8)
+    round_perms = roofline.fs_permutations(32, degree + 1)
+    round_latency = roofline.fs_latency_ms(
+        round_perms, roofline.fs_round_latency_products(degree), product_s)
+    coeff_latency = roofline.fs_latency_ms(
+        roofline.fs_permutations(32, 3), roofline.FS_COEFF_LATENCY_PRODUCTS, product_s)
     rows = []
-    for name, replaces, ms, plain_ms, err, work in (
-        ("fs_round_message", "plonkish_tpu/piop/fiat_shamir.py:314", round_ms, round_plain_ms,
-         round_err, round_work),
-        ("fs_coeff_message", "plonkish_tpu/piop/fiat_shamir.py:396", coeff_ms, coeff_plain_ms,
-         coeff_err, coeff_work),
+    for name, replaces, ms, host_ms, plain_ms, err, work, latency in (
+        ("fs_round_message", "plonkish_tpu/piop/fiat_shamir.py:314", round_ms, round_host_ms,
+         round_plain_ms, round_err, round_work, round_latency),
+        ("fs_coeff_message", "plonkish_tpu/piop/fiat_shamir.py:396", coeff_ms, coeff_host_ms,
+         coeff_plain_ms, coeff_err, coeff_work, coeff_latency),
     ):
         if err:
             fail(f"K6 {name} differs from its plain version at the main path's shapes")
-        b_ms, b_by, b_src = roofline.bound_ms(*work, peaks)
+        # the row's bound is the latency of the shortest dependent chain of
+        # operations, far above their count over the card's rate
+        rate_ms, _, b_src = roofline.bound_ms(*work, peaks)
         rows.append({
             "name": name, "route": "cuda", "source": "plonkish_tpu_torch/csrc/fiat_shamir.cuh",
             "replaces": replaces, "launches": main_path[name], "max_abs_err": 0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "path": "kzg", "counter": name,
+            "plain_ms": plain_ms, "bound_ms": latency, "bound_by": "operations",
+            "library_ms": None, "path": "kzg", "counter": name,
         })
-        log(f"[timing] K6 {name}: {ms * 1e3:.2f} us a launch (plain {plain_ms:.1f} ms, bound "
-            f"{b_ms * 1e3:.4f} us by {b_by} at the {b_src} rate; latency-bound: one thread), {main_path[name]} launches in the prove")
+        log(f"[timing] K6 {name}: {ms * 1e3:.2f} us a launch in a CUDA graph, "
+            f"{host_ms * 1e3:.2f} us launched one by one from Python (plain {plain_ms:.1f} ms, "
+            f"bound {latency * 1e3:.3f} us by the latency of its shortest dependent chain, "
+            f"{100 * latency / ms:.1f} % of it; its operations over the {b_src} rate "
+            f"{rate_ms * 1e3:.4f} us; launch floor {floor_ms * 1e3:.3f} us), "
+            f"{main_path[name]} launches in the prove")
     return rows
 
 
@@ -1297,11 +1454,23 @@ def timing_new_instantiations(torch, k, gen, peaks):
     half = n // 2
     left, right = bases[:half], bases[half:]
     xi = random.Random(6).randrange(curve.scalar.p)
-    fold_ms = cuda_ms(torch, lambda: kipa.base_fold_cuda(curve, left, right, xi), 3)
-    fold_plain_ms, fold_plain = timed_once(
-        torch, lambda: kipa.base_fold_plain(curve, left, right, xi))
-    fold_err = 0 if torch.equal(kipa.base_fold_cuda(curve, left, right, xi), fold_plain) else 1
-    del fold_plain
+    ladder_ms = cuda_ms(torch, lambda: kipa.ladder_cuda(curve, left, right, xi), 3)
+    jac = kipa.ladder_cuda(curve, left, right, xi)
+    affine_ms = cuda_ms(torch, lambda: kipa.affine_cuda(curve, jac), 5)
+    ladder_plain_ms, plain_jac = timed_once(
+        torch, lambda: kipa.ladder_plain(curve, left, right, xi))
+    affine_plain_ms, fold_plain = timed_once(torch, lambda: kipa.affine_plain(curve, plain_jac))
+    # the ladder's points equal the plain ones as affine points; the
+    # conversion is exact on the plain ladder's
+    ladder_err = 0 if torch.equal(kipa.affine_cuda(curve, jac), fold_plain) else 1
+    affine_err = 0 if torch.equal(kipa.affine_cuda(curve, plain_jac), fold_plain) else 1
+    del fold_plain, plain_jac, jac
+    fold_bound = roofline.bound_ms(*roofline.base_fold_work(curve, half, xi), peaks)[0]
+    codes = kipa.digits(curve, xi)
+    log(f"[timing] IPA base fold at 2^{k - 1}: {ladder_ms + affine_ms:.3f} ms (ladder "
+        f"{ladder_ms:.3f}, affine {affine_ms:.3f}) against the whole fold's bound "
+        f"{fold_bound:.3f} ms, {100 * fold_bound / (ladder_ms + affine_ms):.1f} % of it; xi "
+        f"{len(codes)} digits, {sum(1 for c in codes if c)} nonzero")
 
     rows_out = []
     for name, counter, source_file, replaces, ms, plain_ms, err, work in (
@@ -1318,8 +1487,11 @@ def timing_new_instantiations(torch, k, gen, peaks):
          "plonkish_tpu/pallas/sumcheck.py:225", k4_ms, k4_plain_ms, k4_err,
          roofline.fold_work(t_count, rows // 2)),
         ("ipa_base_fold", "ipa_base_fold", "plonkish_tpu_torch/csrc/ipa.cu",
-         "plonkish_tpu/pcs/ipa.py:157", fold_ms, fold_plain_ms, fold_err,
-         roofline.base_fold_work(curve, half, xi)),
+         "plonkish_tpu/pcs/ipa.py:157", ladder_ms, ladder_plain_ms, ladder_err,
+         roofline.fold_ladder_work(curve, half, xi)),
+        ("ipa_fold_affine", "ipa_fold_affine", "plonkish_tpu_torch/csrc/ipa.cu",
+         "plonkish_tpu/pcs/ipa.py:157", affine_ms, affine_plain_ms, affine_err,
+         roofline.fold_affine_work(curve, half)),
     ):
         if err:
             fail(f"{name} differs from its plain version at the k={k} shapes")

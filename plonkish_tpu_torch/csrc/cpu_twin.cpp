@@ -113,6 +113,63 @@ static void window_combine_twin(const uint32_t* pv, int windows, int c, uint32_t
   jac_store(out, V[0]);
 }
 
+// K6: the lanes of the warp one after another between its steps.
+static void keccak_warp_twin(uint64_t a[25]) {
+  uint32_t lfsr = 1;
+  for (int r = 0; r < 24; r++) {
+    uint64_t c[25], t[25], b[25];
+    for (int l = 0; l < 25; l++) c[l] = keccak_parity(l, [&](int j) { return a[j]; });
+    for (int l = 0; l < 25; l++) t[l] = keccak_theta(l, a[l], [&](int j) { return c[j]; });
+    for (int l = 0; l < 25; l++) b[l] = fs_rotl(t[keccak_pi_source(l)], keccak_rho(keccak_pi_source(l)));
+    for (int l = 0; l < 25; l++) a[l] = keccak_chi(l, b[l], [&](int j) { return b[j]; });
+    a[0] ^= keccak_rc(lfsr);
+  }
+}
+
+template <class F>
+static Fe fs_squeeze_twin(const uint32_t* sponge, int lanes, FsShared& sh) {
+  uint64_t a[25];
+  for (int l = 0; l < 25; l++) a[l] = fs_sponge_lane(l, sponge);
+  int base = fs_sponge_base(sponge);
+  bool last = false;
+  while (!last) {
+    for (int l = 0; l < 25; l++) a[l] = fs_absorb_block(l, a[l], sh.words, lanes, base);
+    last = fs_last_block(lanes, base);
+    keccak_warp_twin(a);
+    base += FS_RATE_LANES;
+  }
+  for (int l = 0; l < 4; l++) fs_put_lane(sh.digest, l, a[l]);
+  return fs_challenge<F>(sh.digest);
+}
+
+template <class F>
+static void fs_round_twin(const uint32_t* sums, uint32_t* scal, uint32_t* sponge,
+                          const uint32_t* fixed, const uint32_t* rows, int degree, uint32_t* out,
+                          uint32_t* ch_mont, uint32_t* ids_next) {
+  FsShared sh;
+  Fe m[FS_MAX_DEGREE + 1];
+  for (int t = 0; t <= degree; t++) m[t] = fs_round_prepare<F>(t, sums, scal, fixed, degree, out, sh);
+  Fe ch = fs_squeeze_twin<F>(sponge, 4 * (degree + 1), sh);
+  Fe c = fe_to_mont<F>(ch), next = fe_zero();
+  for (int t = 0; t <= degree; t++) next = fe_add<F>(next, fs_round_term<F>(t, m[t], c, degree, sh));
+  for (int lane = 0; lane < 32; lane++)
+    fs_round_finish<F>(lane, 32, next, ch, c, degree, scal, sponge, rows, out, ch_mont, ids_next,
+                       sh);
+}
+
+template <class F>
+static void fs_coeff_twin(const uint32_t* v, uint32_t* scal, uint32_t* sponge,
+                          const uint32_t* c0_base, uint32_t* out, uint32_t* ch_mont) {
+  FsShared sh;
+  Fe c0, c1, c2;
+  fs_coeff_message<F>(v, scal, c0_base, c0, c1, c2);
+  for (int t = 0; t < 3; t++) fs_coeff_prepare<F>(t, c0, c1, c2, out, sh);
+  Fe ch = fs_squeeze_twin<F>(sponge, 12, sh);
+  Fe c = fe_to_mont<F>(ch);
+  for (int lane = 0; lane < 32; lane++)
+    fs_coeff_finish<F>(lane, 32, c0, c1, c2, ch, c, scal, sponge, out, ch_mont, sh);
+}
+
 extern "C" {
 
 int twin_mont_mul_chain(const uint32_t* a, const uint32_t* b, uint32_t* out,
@@ -222,16 +279,16 @@ int twin_sumcheck_fold(const uint32_t* state, long long n_out,
   return 0;
 }
 
-// K6: the one thread of each launch.
+// K6, both rounds.
 int twin_fs_round(const uint32_t* sums, uint32_t* scal, uint32_t* sponge, const uint32_t* fixed,
                   const uint32_t* rows, int degree, uint32_t* out, uint32_t* ch_mont,
                   uint32_t* ids_next, int field, void* stream) {
   (void)stream;
   if (degree < 1 || degree > FS_MAX_DEGREE) return -1;
   if (field == 0)
-    fs_round_message<Fr>(sums, scal, sponge, fixed, rows, degree, out, ch_mont, ids_next);
+    fs_round_twin<Fr>(sums, scal, sponge, fixed, rows, degree, out, ch_mont, ids_next);
   else if (field == 1)
-    fs_round_message<Fq>(sums, scal, sponge, fixed, rows, degree, out, ch_mont, ids_next);
+    fs_round_twin<Fq>(sums, scal, sponge, fixed, rows, degree, out, ch_mont, ids_next);
   else
     return -1;
   return 0;
@@ -241,21 +298,31 @@ int twin_fs_coeff(const uint32_t* v, uint32_t* scal, uint32_t* sponge, const uin
                   uint32_t* out, uint32_t* ch_mont, int field, void* stream) {
   (void)stream;
   if (field == 0)
-    fs_coeff_message<Fr>(v, scal, sponge, c0_base, out, ch_mont);
+    fs_coeff_twin<Fr>(v, scal, sponge, c0_base, out, ch_mont);
   else if (field == 1)
-    fs_coeff_message<Fq>(v, scal, sponge, c0_base, out, ch_mont);
+    fs_coeff_twin<Fq>(v, scal, sponge, c0_base, out, ch_mont);
   else
     return -1;
   return 0;
 }
 
-// The IPA base fold, point by point (Grumpkin only, as on the card).
-int twin_ipa_base_fold(const uint32_t* left, const uint32_t* right, long long n,
-                       const uint32_t* xi, int nbits, uint32_t* out, int curve,
-                       void* stream) {
+// The IPA base fold's two kernels (Grumpkin only, as on the card): the
+// ladder point by point, the affine conversion chunk by chunk.
+int twin_ipa_fold_ladder(const uint32_t* left, const uint32_t* right, long long n,
+                         const uint32_t* beta, const uint8_t* digits, int len, uint32_t* jac,
+                         int curve, void* stream) {
   (void)stream;
-  if (curve != CURVE_GRUMPKIN || nbits < 0 || nbits > 256) return -1;
-  for (long long i = 0; i < n; i++) base_fold_point<Fr>(i, left, right, xi, nbits, out);
+  FoldSchedule s;
+  if (curve != CURVE_GRUMPKIN || !fold_schedule(beta, digits, len, s)) return -1;
+  for (long long i = 0; i < n; i++) fold_ladder_point<Fr>(i, left, right, s, jac);
+  return 0;
+}
+
+int twin_ipa_fold_affine(const uint32_t* jac, long long n, uint32_t* out, int curve,
+                         void* stream) {
+  (void)stream;
+  if (curve != CURVE_GRUMPKIN) return -1;
+  for (long long c = 0; c * FOLD_CHUNK < n; c++) fold_affine_chunk<Fr>(c, jac, n, out);
   return 0;
 }
 

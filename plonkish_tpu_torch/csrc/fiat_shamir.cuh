@@ -1,14 +1,27 @@
 // Kernel K6, the device-resident Fiat-Shamir round message, over BN254 Fr or
 // Fq: the transcript's Keccak-256 sponge and the arithmetic of one sum-check
-// round message, for one thread.
+// round message, for one warp.
 //
 // Port-only: no Pallas kernel corresponds.  In the JAX package the round
 // message is one jitted XLA program (plonkish_tpu/piop/fiat_shamir.py:314-455:
 // absorb, squeeze, reduce mod p, interpolate), which XLA fuses into a handful
 // of launches; in plain torch the same Keccak-f is about 1,100 launches.  Here
-// it is one launch of one thread.  Bound: latency.  The work is a few dozen
-// products and two or three Keccak-f permutations, a few microseconds of one
-// thread's dependent instructions; the bound by operations is nanoseconds.
+// it is one launch of one warp.  Bound: latency.  The work is a few dozen
+// products and two or three Keccak-f permutations; the bound by operations
+// is nanoseconds, so the least time is the dependent chain
+// (roofline.fs_latency_ms): the permutations' rounds and the products left
+// on the critical path.
+//   Design.  Lane t takes message t out of Montgomery form (one product deep
+// for all t at once) and puts its canonical words in shared memory; the
+// sponge then runs across the warp, lane i holding state lane i in
+// registers: each block's message lanes are XORed in by the lanes of their
+// rate positions (the pending byte count only shifts which message lane a
+// position takes, so no array is indexed by run-time data), and keccak-f's
+// steps exchange lanes by shuffles, 24 rounds in a loop (one lane's
+// keccak-f was slower, with its rounds in a loop and slower still unrolled,
+// whose code outgrows the instruction cache).  Then lane i computes its
+// Lagrange term, all at once, and a shuffle reduction sums them.  Degrees up
+// to 32 have 33 terms: lane 0 takes the 33rd.
 //
 // The sponge lives in device memory as SPONGE_WORDS 32-bit words and is
 // updated in place: 25 state lanes, the 17 lanes of the rate buffer (each
@@ -16,11 +29,12 @@
 // the count of buffered bytes, a multiple of 8 below 136, as run-time data.
 // A field element is absorbed as its 32-byte little-endian canonical repr
 // (hash.rs:19-21), and a squeeze is finalize_reset then re-absorb of the
-// digest (transcript.rs:127-131), so after a squeeze 32 bytes are pending.
+// digest (transcript.rs:127-131), so after a squeeze the state is zero and
+// the digest's 32 bytes are pending.
 //
 // Every function is __host__ __device__: the CPU tests compile this header
-// with g++ (csrc/cpu_twin.cpp) and hold it against the plain torch version
-// (plonkish_tpu_torch/piop/fiat_shamir.py).
+// with g++ (csrc/cpu_twin.cpp), run the lanes one after another, and hold it
+// against the plain torch version (plonkish_tpu_torch/piop/fiat_shamir.py).
 #pragma once
 
 #include "field.cuh"
@@ -68,57 +82,7 @@ PK_HD Fe fe_from_mont(const Fe& a) {
   return fe_mul<F>(a, raw1);
 }
 
-PK_HD uint64_t fs_rotl(uint64_t x, int n) { return (x << n) | (x >> (64 - n)); }
-
-// keccak-f[1600] on lanes st[x + 5y].
-PK_HD void keccak_f1600(uint64_t st[25]) {
-  const uint64_t RC[24] = {
-      0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull,
-      0x8000000080008000ull, 0x000000000000808Bull, 0x0000000080000001ull,
-      0x8000000080008081ull, 0x8000000000008009ull, 0x000000000000008Aull,
-      0x0000000000000088ull, 0x0000000080008009ull, 0x000000008000000Aull,
-      0x000000008000808Bull, 0x800000000000008Bull, 0x8000000000008089ull,
-      0x8000000000008003ull, 0x8000000000008002ull, 0x8000000000000080ull,
-      0x000000000000800Aull, 0x800000008000000Aull, 0x8000000080008081ull,
-      0x8000000000008080ull, 0x0000000080000001ull, 0x8000000080008008ull};
-  // rho and pi, walked along the lane cycle that starts at lane 1
-  const int ROT[24] = {1,  3,  6,  10, 15, 21, 28, 36, 45, 55, 2,  14,
-                       27, 41, 56, 8,  25, 43, 62, 18, 39, 61, 20, 44};
-  const int PI[24] = {10, 7,  11, 17, 18, 3, 5,  16, 8,  21, 24, 4,
-                      15, 23, 19, 13, 12, 2, 20, 14, 22, 9,  6,  1};
-  uint64_t bc[5];
-  for (int r = 0; r < 24; r++) {
-#pragma unroll
-    for (int x = 0; x < 5; x++) bc[x] = st[x] ^ st[x + 5] ^ st[x + 10] ^ st[x + 15] ^ st[x + 20];
-#pragma unroll
-    for (int x = 0; x < 5; x++) {
-      uint64_t t = bc[(x + 4) % 5] ^ fs_rotl(bc[(x + 1) % 5], 1);
-#pragma unroll
-      for (int y = 0; y < 25; y += 5) st[y + x] ^= t;
-    }
-    uint64_t t = st[1];
-#pragma unroll
-    for (int i = 0; i < 24; i++) {
-      uint64_t next = st[PI[i]];
-      st[PI[i]] = fs_rotl(t, ROT[i]);
-      t = next;
-    }
-#pragma unroll
-    for (int y = 0; y < 25; y += 5) {
-#pragma unroll
-      for (int x = 0; x < 5; x++) bc[x] = st[y + x];
-#pragma unroll
-      for (int x = 0; x < 5; x++) st[y + x] ^= (~bc[(x + 1) % 5]) & bc[(x + 2) % 5];
-    }
-    st[0] ^= RC[r];
-  }
-}
-
-struct Sponge {
-  uint64_t st[25];
-  uint64_t buf[FS_RATE_LANES];
-  uint32_t nbytes;
-};
+PK_HD uint64_t fs_rotl(uint64_t x, int n) { return n ? (x << n) | (x >> (64 - n)) : x; }
 
 PK_HD uint64_t fs_lane(const uint32_t* w, int i) {
   return (uint64_t)w[2 * i] | ((uint64_t)w[2 * i + 1] << 32);
@@ -129,63 +93,114 @@ PK_HD void fs_put_lane(uint32_t* w, int i, uint64_t v) {
   w[2 * i + 1] = (uint32_t)(v >> 32);
 }
 
-PK_HD Sponge sponge_load(const uint32_t* w) {
-  Sponge s;
-  for (int i = 0; i < 25; i++) s.st[i] = fs_lane(w, i);
-  for (int i = 0; i < FS_RATE_LANES; i++) s.buf[i] = fs_lane(w + 50, i);
-  s.nbytes = w[50 + 2 * FS_RATE_LANES];
-  return s;
+// keccak-f[1600] across a warp: lane i < 25 holds the state's lane i
+// (x = i % 5, y = i / 5).  A round is four steps, each a function of the
+// lane and of `get(j)`, lane j's value of the step before (a shuffle on the
+// card, an array read in the host twin); the rounds are a loop and their
+// constants come from the LFSR of FIPS 202.  Lanes 25..31 compute nothing
+// that is read.
+
+// theta's column parity: C[x].
+template <class Get>
+PK_HD uint64_t keccak_parity(int lane, Get get) {
+  int x = lane % 5;
+  return get(x) ^ get(x + 5) ^ get(x + 10) ^ get(x + 15) ^ get(x + 20);
 }
 
-PK_HD void sponge_store(uint32_t* w, const Sponge& s) {
-  for (int i = 0; i < 25; i++) fs_put_lane(w, i, s.st[i]);
-  for (int i = 0; i < FS_RATE_LANES; i++) fs_put_lane(w + 50, i, s.buf[i]);
-  w[50 + 2 * FS_RATE_LANES] = s.nbytes;
+// theta: a ^ C[x - 1] ^ rot(C[x + 1], 1), the parities from lanes 0..4.
+template <class Get>
+PK_HD uint64_t keccak_theta(int lane, uint64_t a, Get parity) {
+  int x = lane % 5;
+  return a ^ parity((x + 4) % 5) ^ fs_rotl(parity((x + 1) % 5), 1);
 }
 
-PK_HD void sponge_absorb_lane(Sponge& s, uint64_t lane) {
-  s.buf[s.nbytes / 8] = lane;
-  s.nbytes += 8;
-  if (s.nbytes == 8 * FS_RATE_LANES) {
-    for (int i = 0; i < FS_RATE_LANES; i++) {
-      s.st[i] ^= s.buf[i];
-      s.buf[i] = 0;
-    }
-    keccak_f1600(s.st);
-    s.nbytes = 0;
+// rho and pi: lane (X, Y) takes lane (x, y) = ((3Y + X) % 5, X) rotated by
+// its rho offset.
+PK_HD int keccak_pi_source(int lane) {
+  int X = lane % 5, Y = lane / 5;
+  return (3 * Y + X) % 5 + 5 * X;
+}
+
+// rho's offsets of lanes 0..24, six bits each, ten to a word.
+PK_HD int keccak_rho(int lane) {
+  uint64_t w = lane < 10 ? 0x5371ac91b73e040ull : lane < 20 ? 0x2153eda6766b283ull : 0xee3d092ull;
+  return (int)((w >> (6 * (lane % 10))) & 63);
+}
+
+// chi: b ^ (~b[x + 1] & b[x + 2]) in the lane's row.
+template <class Get>
+PK_HD uint64_t keccak_chi(int lane, uint64_t b, Get get) {
+  int x = lane % 5, row = lane - x;
+  return b ^ (~get(row + (x + 1) % 5) & get(row + (x + 2) % 5));
+}
+
+// The next round constant from the LFSR's state (1 before round 0).
+PK_HD uint64_t keccak_rc(uint32_t& lfsr) {
+  uint64_t rc = 0;
+#pragma unroll
+  for (int j = 0; j < 7; j++) {
+    if (lfsr & 1) rc ^= 1ull << ((1 << j) - 1);
+    lfsr = (lfsr & 0x80) ? ((lfsr << 1) ^ 0x71) & 0xff : lfsr << 1;
   }
+  return rc;
 }
 
-// Absorb one canonical element as its 32-byte little-endian repr.
-PK_HD void sponge_absorb_fe(Sponge& s, const Fe& canon) {
-  for (int j = 0; j < 4; j++) sponge_absorb_lane(s, fs_lane(canon.v, j));
+// What the lanes of a launch share (shared memory on the card).
+struct FsShared {
+  uint32_t words[8 * (FS_MAX_DEGREE + 1)];  // the message, canonical: what is absorbed
+  Fe points[FS_MAX_DEGREE + 1];              // the Lagrange points, Montgomery
+  uint32_t digest[8];
+};
+
+// The sponge on the warp.  Lane `lane`'s state word before the first
+// block: the state's lane XOR the buffer's (its lanes beyond the count are
+// zero, so the pending bytes are absorbed by this).
+PK_HD uint64_t fs_sponge_lane(int lane, const uint32_t* sponge) {
+  if (lane >= 25) return 0;
+  uint64_t a = fs_lane(sponge, lane);
+  return lane < FS_RATE_LANES ? a ^ fs_lane(sponge + 50, lane) : a;
 }
 
-// finalize_reset, then re-absorb the digest; returns the digest as 8 words.
-PK_HD Fe sponge_squeeze(Sponge& s) {
-  s.buf[s.nbytes / 8] ^= 0x01ull;
-  s.buf[FS_RATE_LANES - 1] ^= 0x8000000000000000ull;
-  for (int i = 0; i < FS_RATE_LANES; i++) s.st[i] ^= s.buf[i];
-  keccak_f1600(s.st);
-  Fe digest;
-  for (int j = 0; j < 4; j++) fs_put_lane(digest.v, j, s.st[j]);
-  for (int i = 0; i < 25; i++) s.st[i] = 0;
-  for (int i = 0; i < FS_RATE_LANES; i++) s.buf[i] = 0;
-  s.nbytes = 0;
-  for (int j = 0; j < 4; j++) sponge_absorb_lane(s, fs_lane(digest.v, j));
-  return digest;
+// The message lane at rate position 0 of the first block: minus the count
+// of pending lanes.
+PK_HD int fs_sponge_base(const uint32_t* sponge) {
+  return -(int)(sponge[FS_SPONGE_WORDS - 1] / 8);
 }
 
-// The digest (little endian, below 2^256) mod p: p > 2^253, so five
-// conditional subtractions suffice (Fp.mod_from_le_bytes).
+PK_HD bool fs_last_block(int lanes, int base) { return lanes - base < FS_RATE_LANES; }
+
+// The block whose position 0 is message lane `base` (of `lanes` in
+// `words`) XORed into lane `lane`'s word, with the padding if it is the
+// last block.
+PK_HD uint64_t fs_absorb_block(int lane, uint64_t a, const uint32_t* words, int lanes,
+                               int base) {
+  int j = base + lane;
+  if (lane < FS_RATE_LANES && j >= 0 && j < lanes) a ^= fs_lane(words, j);
+  if (fs_last_block(lanes, base)) {
+    if (lane == lanes - base) a ^= 0x01ull;
+    if (lane == FS_RATE_LANES - 1) a ^= 0x8000000000000000ull;
+  }
+  return a;
+}
+
+// The challenge: the digest (little endian, below 2^256) mod p; p > 2^253,
+// so five conditional subtractions suffice (Fp.mod_from_le_bytes).
 template <class F>
-PK_HD Fe fs_challenge(const Fe& digest) {
-  Fe x = digest;
+PK_HD Fe fs_challenge(const uint32_t* digest) {
+  Fe x = fe_load(digest);
+#pragma unroll
   for (int i = 0; i < 5; i++) {
     Fe d;
     if (!sub_p<F>(d, x)) x = d;
   }
   return x;
+}
+
+// The sponge after a squeeze, lane `lane` of `count`: zero state, the
+// digest pending.
+PK_HD void fs_sponge_store(int lane, int count, uint32_t* sponge, const uint32_t* digest) {
+  for (int w = lane; w < FS_SPONGE_WORDS; w += count)
+    sponge[w] = w >= 50 && w < 58 ? digest[w - 50] : w == FS_SPONGE_WORDS - 1 ? 32u : 0u;
 }
 
 // One Evaluations round (classic/eval.rs): the message is sum - e(1), e(1),
@@ -198,43 +213,60 @@ PK_HD Fe fs_challenge(const Fe& digest) {
 //   (weights, then points); rows [2, 3, 8]: this round's (mul, base_add,
 //   step) and the next's; out [d + 2, 8]: the message, canonical, then the
 //   challenge, canonical; ch_mont [8]; ids_next [3, 8].
-template <class F>
-PK_HD void fs_round_message(const uint32_t* sums, uint32_t* scal, uint32_t* sponge,
-                            const uint32_t* fixed, const uint32_t* rows, int degree,
-                            uint32_t* out, uint32_t* ch_mont, uint32_t* ids_next) {
-  Fe msg[FS_MAX_DEGREE + 1];
-  Fe sum = fe_load(scal), off = fe_load(scal + 8);
-  for (int t = 1; t <= degree; t++) msg[t] = fe_load(sums + 8 * (t - 1));
-  msg[0] = fe_sub<F>(sum, msg[1]);
-  Sponge s = sponge_load(sponge);
-  for (int t = 0; t <= degree; t++) {
-    Fe canon = fe_from_mont<F>(msg[t]);
-    fe_store(out + 8 * t, canon);
-    sponge_absorb_fe(s, canon);
-  }
-  Fe ch = fs_challenge<F>(sponge_squeeze(s));
-  sponge_store(sponge, s);
-  fe_store(out + 8 * (degree + 1), ch);
-  Fe c = fe_to_mont<F>(ch);
-  fe_store(ch_mont, c);
+// The lanes: each term t = 0..d fs_round_prepare; the sponge absorbs the
+// message and squeezes (fs_sponge_lane .. fs_absorb_block, the warp's
+// keccak-f); each term fs_round_term at the challenge; the terms summed;
+// every lane fs_round_finish.
 
-  // Lagrange form: prefix products of (c - j) left of i, suffix right of i
-  Fe suffix[FS_MAX_DEGREE + 2];
-  suffix[degree + 1] = fe_one<F>();
-  for (int i = degree; i >= 0; i--)
-    suffix[i] = fe_mul<F>(suffix[i + 1], fe_sub<F>(c, fe_load(fixed + 8 * (degree + 1 + i))));
-  Fe prefix = fe_one<F>(), next = fe_zero();
-  for (int i = 0; i <= degree; i++) {
-    Fe li = fe_mul<F>(prefix, suffix[i + 1]);
-    next = fe_add<F>(next, fe_mul<F>(fe_mul<F>(li, fe_load(fixed + 8 * i)), msg[i]));
-    prefix = fe_mul<F>(prefix, fe_sub<F>(c, fe_load(fixed + 8 * (degree + 1 + i))));
+// Term t, before the squeeze: message t out of Montgomery form into out and
+// sh.words, point t into sh.points; returns w_t * msg_t.
+template <class F>
+PK_HD Fe fs_round_prepare(int t, const uint32_t* sums, const uint32_t* scal,
+                          const uint32_t* fixed, int degree, uint32_t* out, FsShared& sh) {
+  Fe msg = t ? fe_load(sums + 8 * (t - 1)) : fe_sub<F>(fe_load(scal), fe_load(sums));
+  Fe canon = fe_from_mont<F>(msg);
+  fe_store(out + 8 * t, canon);
+  fe_store(sh.words + 8 * t, canon);
+  sh.points[t] = fe_load(fixed + 8 * (degree + 1 + t));
+  return fe_mul<F>(msg, fe_load(fixed + 8 * t));
+}
+
+// Term t at the challenge c (Montgomery): m_t * prod_{j != t} (c - x_j), the
+// factors in two chains (even and odd j) so that every lane multiplies in
+// step; the skipped factor is one.
+template <class F>
+PK_HD Fe fs_round_term(int t, const Fe& m, const Fe& c, int degree, const FsShared& sh) {
+  Fe a = m, b = fe_one<F>();
+  for (int j = 0; j <= degree; j += 2) {
+    a = fe_mul<F>(a, j == t ? fe_one<F>() : fe_sub<F>(c, sh.points[j]));
+    if (j + 1 <= degree)
+      b = fe_mul<F>(b, j + 1 == t ? fe_one<F>() : fe_sub<F>(c, sh.points[j + 1]));
   }
-  Fe off_next = fe_add<F>(off, fe_mul<F>(c, fe_load(rows + 16)));
-  fe_store(scal, next);
-  fe_store(scal + 8, off_next);
-  fe_store(ids_next, fe_load(rows + 24));
-  fe_store(ids_next + 8, fe_add<F>(off_next, fe_load(rows + 32)));
-  fe_store(ids_next + 16, fe_load(rows + 40));
+  return fe_mul<F>(a, b);
+}
+
+// Lane `lane` of `count` after the sum of the terms (`next`, on lane 0);
+// ch the challenge, canonical, c in Montgomery form: lane 0 the next sum,
+// lane 1 the offset and the next identity rows, lane 2 the challenge; every
+// lane its share of the sponge's words.
+template <class F>
+PK_HD void fs_round_finish(int lane, int count, const Fe& next, const Fe& ch, const Fe& c,
+                           int degree, uint32_t* scal, uint32_t* sponge, const uint32_t* rows,
+                           uint32_t* out, uint32_t* ch_mont, uint32_t* ids_next,
+                           const FsShared& sh) {
+  if (lane == 0) fe_store(scal, next);
+  if (lane == 1) {
+    Fe off_next = fe_add<F>(fe_load(scal + 8), fe_mul<F>(c, fe_load(rows + 16)));
+    fe_store(scal + 8, off_next);
+    fe_store(ids_next, fe_load(rows + 24));
+    fe_store(ids_next + 8, fe_add<F>(off_next, fe_load(rows + 32)));
+    fe_store(ids_next + 16, fe_load(rows + 40));
+  }
+  if (lane == 2) {
+    fe_store(out + 8 * (degree + 1), ch);
+    fe_store(ch_mont, c);
+  }
+  fs_sponge_store(lane, count, sponge, sh.digest);
 }
 
 // One Coefficients round (classic/coeff.rs:16-39): c0 = c0_base + v0,
@@ -242,25 +274,41 @@ PK_HD void fs_round_message(const uint32_t* sums, uint32_t* scal, uint32_t* spon
 // c0 + c (c1 + c c2).
 //   v [2, 8] (v0, v2) Montgomery; scal [8] the sum in and out; c0_base [8];
 //   out [4, 8]: c0, c1, c2 canonical, then the challenge; ch_mont [8].
+// Lanes 0..2 fs_coeff_prepare, the sponge as in the Evaluations round,
+// every lane fs_coeff_finish.
+
 template <class F>
-PK_HD void fs_coeff_message(const uint32_t* v, uint32_t* scal, uint32_t* sponge,
-                            const uint32_t* c0_base, uint32_t* out, uint32_t* ch_mont) {
-  Fe c0 = fe_add<F>(fe_load(c0_base), fe_load(v));
-  Fe c2 = fe_load(v + 8);
-  Fe c1 = fe_sub<F>(fe_sub<F>(fe_load(scal), fe_add<F>(c0, c0)), c2);
-  Fe msg[3] = {c0, c1, c2};
-  Sponge s = sponge_load(sponge);
-  for (int t = 0; t < 3; t++) {
-    Fe canon = fe_from_mont<F>(msg[t]);
-    fe_store(out + 8 * t, canon);
-    sponge_absorb_fe(s, canon);
-  }
-  Fe ch = fs_challenge<F>(sponge_squeeze(s));
-  sponge_store(sponge, s);
-  fe_store(out + 24, ch);
-  Fe c = fe_to_mont<F>(ch);
-  fe_store(ch_mont, c);
-  fe_store(scal, fe_add<F>(c0, fe_mul<F>(c, fe_add<F>(c1, fe_mul<F>(c, c2)))));
+PK_HD void fs_coeff_message(const uint32_t* v, const uint32_t* scal, const uint32_t* c0_base,
+                            Fe& c0, Fe& c1, Fe& c2) {
+  c0 = fe_add<F>(fe_load(c0_base), fe_load(v));
+  c2 = fe_load(v + 8);
+  c1 = fe_sub<F>(fe_sub<F>(fe_load(scal), fe_add<F>(c0, c0)), c2);
+}
+
+// Coefficient t (< 3) of (c0, c1, c2) out of Montgomery form into out and
+// sh.words.
+template <class F>
+PK_HD void fs_coeff_prepare(int t, const Fe& c0, const Fe& c1, const Fe& c2, uint32_t* out,
+                            FsShared& sh) {
+  Fe m;
+#pragma unroll
+  for (int w = 0; w < 8; w++) m.v[w] = t == 0 ? c0.v[w] : t == 1 ? c1.v[w] : c2.v[w];
+  Fe canon = fe_from_mont<F>(m);
+  fe_store(out + 8 * t, canon);
+  fe_store(sh.words + 8 * t, canon);
+}
+
+// Lane `lane` of `count` after the squeeze (ch canonical, c Montgomery):
+// lane 0 the next sum, lane 1 the challenge in Montgomery form, lane 2 the
+// challenge; every lane its share of the sponge's words.
+template <class F>
+PK_HD void fs_coeff_finish(int lane, int count, const Fe& c0, const Fe& c1, const Fe& c2,
+                           const Fe& ch, const Fe& c, uint32_t* scal, uint32_t* sponge,
+                           uint32_t* out, uint32_t* ch_mont, const FsShared& sh) {
+  if (lane == 0) fe_store(scal, fe_add<F>(c0, fe_mul<F>(c, fe_add<F>(c1, fe_mul<F>(c, c2)))));
+  if (lane == 1) fe_store(ch_mont, c);
+  if (lane == 2) fe_store(out + 24, ch);
+  fs_sponge_store(lane, count, sponge, sh.digest);
 }
 
 }  // namespace pk

@@ -25,6 +25,7 @@ LAUNCHES = {
     "sumcheck_fold": 0,
     "mont_mul_chain": 0,
     "ipa_base_fold": 0,
+    "ipa_fold_affine": 0,
     "fs_round_message": 0,
     "fs_coeff_message": 0,
 }

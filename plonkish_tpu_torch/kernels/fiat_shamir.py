@@ -3,7 +3,7 @@
 A kernel of the port only: the JAX package runs the round message as one
 jitted XLA program (plonkish_tpu/piop/fiat_shamir.py:314-455), not in Pallas.
 The CUDA source is ``csrc/fiat_shamir.cu`` over ``csrc/fiat_shamir.cuh``: one
-thread absorbs the round's message into the transcript's sponge, squeezes the
+warp absorbs the round's message into the transcript's sponge, squeezes the
 challenge and computes what the next round needs, so that K3 -> K6 -> K4
 enqueue with no host read.  The plain versions and the functions the prover
 calls are in ``piop/fiat_shamir.py``, which also documents the layouts.

@@ -17,8 +17,11 @@ share uses the larger of the two and says which (``imad_rate``).
 
 The counts are the port's algorithms': sorted Pippenger buckets (K1, K2), the
 tape-interpreting round kernel (K3), the fold (K4) and the round message
-(K6, whose Keccak-f logic operations are counted beside its products); the
-IPA base fold's is the least its function needs (``base_fold_work``).
+(K6, whose Keccak-f logic operations are counted beside its products, and
+whose least time is its shortest dependent chain, ``fs_latency_ms``); the
+IPA base fold's is the work of the design it runs (``base_fold_work``, the sum
+of its two kernels' counts), which is not shown to be the least its function
+needs.
 """
 
 from __future__ import annotations
@@ -84,28 +87,60 @@ def fold_work(tables: int, pairs: int) -> Tuple[int, int]:
     return tables * pairs * FE_MUL_IMAD, tables * pairs * 3 * FE_BYTES
 
 
-def base_fold_work(curve, n: int, xi: int) -> Tuple[int, int]:
-    """The least work of the IPA base fold L + xi * R over n affine points,
-    for this xi.  xi splits by the curve's endomorphism into k1 + k2 * lambda
-    of about half its bits each (curves/device.py::_glv_split), and k1 * R +
-    k2 * phi(R) is one double-and-add over both halves at once (Shamir): one
-    product for phi(R) and one mixed addition for R + phi(R) when both halves
-    are nonzero, a doubling per joint bit below the top, a mixed addition per
-    joint bit below the top where either half is set, and one for L.  The
-    affine output takes a batch inversion (3 products a point and one
-    inversion by Fermat for the batch) and 4 products a point.  L and R read
-    once, the affine output written once."""
-    from .curves.device import _glv_split
+FOLD_TABLE_MULS = 16  # csrc/ipa.cu fold_ladder_point's products before the ladder and after
+FOLD_AFFINE_MULS = 7  # a point of the batch conversion: 3 for the inversion, 4 for (x, y)
 
-    k1, k2 = (abs(v) for v in _glv_split(curve, xi % curve.scalar.p))
-    joint = k1 | k2
-    table = 1 + MADD_MULS if k1 and k2 else 0
-    shamir = (JDBL_MULS * max(0, joint.bit_length() - 1)
-              + MADD_MULS * max(0, bin(joint).count("1") - 1))
-    per_point = table + shamir + MADD_MULS + 3 + 4
+
+def _fold_schedule_muls(curve, xi: int):
+    """Products a point of the ladder for this xi (csrc/ipa.cu): its table
+    (beta x, Q = R - phi(R) in Jacobian, the map to Q's curve, the beta
+    multiples, L's map and the map back) unless every digit is +-1, a
+    doubling per digit below the top, a mixed addition per nonzero digit
+    below the top and one for L; 0 for xi = 0 (the fold is L)."""
+    from .kernels.ipa import FAMILY_Q, digits
+
+    codes = digits(curve, xi)
+    nonzero = [c for c in codes if c]
+    if not nonzero:
+        return 0
+    table = FOLD_TABLE_MULS if any(c & (FAMILY_Q | 3) for c in nonzero) else 0
+    return (table + JDBL_MULS * (len(codes) - 1) + MADD_MULS * (len(nonzero) - 1)
+            + MADD_MULS)
+
+
+def _inversion_muls(curve) -> int:
     p = curve.base.p
-    inversion = (p - 2).bit_length() + bin(p - 2).count("1")
-    return (n * per_point + inversion) * FE_MUL_IMAD, n * 3 * 2 * FE_BYTES
+    return (p - 2).bit_length() + bin(p - 2).count("1")
+
+
+def fold_ladder_work(curve, n: int, xi: int) -> Tuple[int, int]:
+    """The fold's ladder kernel: its products; L and R read once, the
+    Jacobian points written once."""
+    return n * _fold_schedule_muls(curve, xi) * FE_MUL_IMAD, n * (4 + 3) * FE_BYTES
+
+
+def fold_affine_work(curve, n: int) -> Tuple[int, int]:
+    """The fold's conversion to affine: FOLD_AFFINE_MULS a point and one
+    inversion (Montgomery's trick over the whole batch); the Jacobian points
+    read once, the affine ones written once."""
+    return (n * FOLD_AFFINE_MULS + _inversion_muls(curve)) * FE_MUL_IMAD, n * (3 + 2) * FE_BYTES
+
+
+def base_fold_work(curve, n: int, xi: int) -> Tuple[int, int]:
+    """The work of the IPA base fold L + xi * R over n affine points, for
+    this xi, in the design csrc/ipa.cu runs: xi split by the curve's
+    endomorphism (curves/device.py::_glv_split) and recoded as a width-2 NAF
+    over the Eisenstein integers, whose digit points all come from R and
+    Q = R - phi(R) by phi and negation (``_fold_schedule_muls``), then the
+    affine output by one batch inversion: the ladder's and the conversion's
+    products.  A wider window would need fewer additions; it is not counted,
+    so this is the design's work, not the function's least.  xi = 0 needs
+    none (the fold is L).  L and R read once, the affine output written
+    once."""
+    if not _fold_schedule_muls(curve, xi):
+        return 0, n * 3 * 2 * FE_BYTES
+    ops = fold_ladder_work(curve, n, xi)[0] + fold_affine_work(curve, n)[0]
+    return ops, n * 3 * 2 * FE_BYTES
 
 
 KECCAK_ROUND_OPS = 150  # 64-bit xor, and-not and rotate operations a round of keccak-f
@@ -132,6 +167,41 @@ def fs_message_work(products: int, permutations: int, in_words: int,
     once and every output word written once."""
     ops = products * FE_MUL_IMAD + permutations * 24 * KECCAK_ROUND_OPS * 2
     return ops, 4 * (in_words + out_words)
+
+
+KECCAK_ROUND_DEPTH = 7  # a round's dependent chain: theta's two 3-input XORs, its rotation
+# by one and its XOR into the lane, rho's rotation, chi's 3-input logic op, iota
+# A dependent integer instruction: "typically 4 clock cycles" for most
+# arithmetic instructions (CUDA C++ Programming Guide, Performance Guidelines,
+# Multiprocessor Level); cited, not measured on the card.
+ALU_LATENCY_CYCLES = 4
+# The Coefficients round's shortest chain of products: the coefficients out of
+# Montgomery form before the absorb, then c^2 beside c c1, then c^2 c2 (the
+# challenge's Montgomery factor folded into c1 and c2 before the squeeze).
+FS_COEFF_LATENCY_PRODUCTS = 3
+
+
+def fs_round_latency_products(degree: int) -> int:
+    """The products on the shortest dependent chain of an Evaluations round
+    of `degree`: the message out of Montgomery form before the absorb (a
+    product by one, as the kernel does it), then a Lagrange term's degree + 1
+    factors (its weighted message and the degree differences c - x_j) as a
+    balanced tree of ceil(log2(degree + 1)) levels.  The challenge's entry
+    into Montgomery form is not counted: its factor R can be folded into the
+    weighted message before the squeeze.  The kernel runs a longer chain
+    (the challenge into Montgomery form, two chains of degree // 2 + 1
+    products and their product)."""
+    return 1 + max(0, degree).bit_length()
+
+
+def fs_latency_ms(permutations: int, products: int, product_s: float,
+                  clock_hz: float = PEAKS["sm_clock_hz"]) -> float:
+    """The least time of K6's dependent chain: each permutation's 24 rounds
+    of KECCAK_ROUND_DEPTH dependent instructions at ALU_LATENCY_CYCLES each,
+    plus `products` dependent products at `product_s` each (one product's
+    latency, measured by K5 at one element)."""
+    keccak_s = permutations * 24 * KECCAK_ROUND_DEPTH * ALU_LATENCY_CYCLES / clock_hz
+    return (keccak_s + products * product_s) * 1e3
 
 
 def chain_work(n: int, chain: int) -> Tuple[int, int]:

@@ -202,10 +202,13 @@ def _run_round(fn, spec, degree, case):
 
 
 @pytest.mark.parametrize("field", ["fr", "fq"])
-@pytest.mark.parametrize("degree", [1, 3, 5])
+@pytest.mark.parametrize("degree", [1, 2, 3, 5, 9, 32])
 def test_k6_round_twin_equals_plain(twin, field, degree):
+    """Degree 9 is the widest of the tapes chip_smoke.py builds, 32 the
+    widest K6 takes (lane 0 then holds two terms); 128 pending bytes make
+    the first absorbed lane fill the block."""
     spec = SPECS[field][0]
-    for pending in (0, 32, 80, 120):
+    for pending in (0, 32, 80, 120, 128):
         case = k6_round_case(spec, degree, pending, 100 * degree + pending)
         got = _run_round(twin.twin_fs_round, spec, degree, case)
         want = _run_round(None, spec, degree, case)

@@ -255,8 +255,11 @@ def test_fq_sumcheck_kernels_match_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [512, (1 << 12) + 3])
 @pytest.mark.parametrize("xi", [0, 1, -1, 0x123456789ABCDEF0123456789ABCDEF])
-def test_ipa_base_fold_matches_plain(cuda, xi):
+def test_ipa_base_fold_matches_plain(cuda, xi, n):
+    """The fold's two kernels against their plain versions: the whole fold
+    exactly, and the conversion on the plain ladder's points."""
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.curves.host import AffinePoint
     from plonkish_tpu_torch.curves.specs import GRUMPKIN_G1 as C
@@ -264,15 +267,16 @@ def test_ipa_base_fold_matches_plain(cuda, xi):
     from plonkish_tpu_torch.kernels import ipa as kipa
 
     rng = random.Random(8)
-    n = 512
     s = [rng.randrange(C.scalar.p) for _ in range(2 * n)]
     pts = tmsm.fixed_base_msm(C, AffinePoint.generator(C), limb.from_canonical_ints(C.scalar, s, cuda))
     pts[3:5] = 0
     left, right = pts[:n].contiguous(), pts[n:].contiguous()
     right[7] = left[7]
     xi %= C.scalar.p
-    assert torch.equal(kipa.base_fold_cuda(C, left, right, xi),
-                       kipa.base_fold_plain(C, left, right, xi))
+    plain_jac = kipa.ladder_plain(C, left, right, xi)
+    want = kipa.affine_plain(C, plain_jac)
+    assert torch.equal(kipa.base_fold_cuda(C, left, right, xi), want)
+    assert torch.equal(kipa.affine_cuda(C, plain_jac), want)
 
 
 @pytest.mark.gpu

@@ -53,7 +53,8 @@ def twin():
     build.bind(lib.twin_msm_window_level, kmsm.WINDOW_ARGS)
     build.bind(lib.twin_msm_window_combine, kmsm.COMBINE_ARGS)
     build.bind(lib.twin_sumcheck_fold, ksc.FOLD_ARGS)
-    build.bind(lib.twin_ipa_base_fold, kipa.FOLD_ARGS)
+    build.bind(lib.twin_ipa_fold_ladder, kipa.LADDER_ARGS)
+    build.bind(lib.twin_ipa_fold_affine, kipa.AFFINE_ARGS)
     return lib
 
 
@@ -164,22 +165,99 @@ def test_curve_ops_twin_and_plain(twin):
     assert cdev.jac_to_host(BN254_G1, got) == [p.scalar_mul(k) for p in bn]
 
 
-@pytest.mark.parametrize("xi", [0, 1, Q - 1, 0x2468ACE13579BDF02468ACE13579BDF0])
+LAMBDA = cdev._endomorphism(C)[1]
+
+
+def _xi_with_signs(s1, s2):
+    """A random xi whose GLV halves k1, k2 have the signs s1, s2."""
+    rng = random.Random(30 + 2 * s1 + s2)
+    while True:
+        xi = rng.randrange(Q)
+        k1, k2 = cdev._glv_split(C, xi)
+        if (k1 > 0) - (k1 < 0) == s1 and (k2 > 0) - (k2 < 0) == s2:
+            return xi
+
+
+def _fold_twin(twin, left, right, xi):
+    """The fold through the twins of its two kernels, each held against its
+    plain version: the ladder's Jacobian points equal the plain ones as
+    points, the conversion is exact on the plain ones.  Returns the twins'
+    fold and the plain one."""
+    jac = kipa.ladder_launch(twin.twin_ipa_fold_ladder, None, C, left, right, xi)
+    plain_jac = kipa.ladder_plain(C, left, right, xi)
+    plain = kipa.affine_plain(C, plain_jac)
+    assert torch.equal(kipa.affine_launch(twin.twin_ipa_fold_affine, None, C, plain_jac), plain)
+    return kipa.affine_launch(twin.twin_ipa_fold_affine, None, C, jac), plain
+
+
+@pytest.mark.parametrize("xi", [
+    0, 1, Q - 1, 0x2468ACE13579BDF02468ACE13579BDF0, LAMBDA, Q - LAMBDA,
+    _xi_with_signs(1, 1), _xi_with_signs(1, -1), _xi_with_signs(-1, 1),
+    _xi_with_signs(-1, -1)],
+    ids=["0", "1", "q-1", "random", "lambda", "-lambda", "k1+k2+", "k1+k2-", "k1-k2+",
+         "k1-k2-"])
 def test_ipa_base_fold_twin(twin, xi):
-    """The fold kernel's per-thread body against its plain version and the
-    host: identities on both sides, L = R and L = -R among the points."""
+    """The fold kernels' per-thread bodies against their plain versions and
+    the host: identities on both sides, L = R and L = -R among the points;
+    xi = lambda (k1 = 0), 1 (k2 = 0) and GLV halves of both signs."""
     n = 6
     left_pts, right_pts = _points(n, 11), _points(n, 12)
     right_pts[4], right_pts[5] = left_pts[4], -left_pts[5]
     left, right = (cdev.affine_from_host(C, p, "cpu") for p in (left_pts, right_pts))
     want = [a + b.scalar_mul(xi) for a, b in zip(left_pts, right_pts)]
-    plain = kipa.base_fold_plain(C, left, right, xi)
+    got, plain = _fold_twin(twin, left, right, xi)
     assert cdev.affine_to_host(C, plain) == want
-    got = kipa.base_fold_launch(twin.twin_ipa_base_fold, None, C, left, right, xi)
     assert torch.equal(got, plain)
     assert torch.equal(kipa.base_fold(C, left, right, xi), plain)
     with pytest.raises(NotImplementedError):
-        kipa.base_fold_launch(twin.twin_ipa_base_fold, None, BN254_G1, left, right, xi)
+        kipa.ladder_launch(twin.twin_ipa_fold_ladder, None, BN254_G1, left, right, xi)
+
+
+def test_ipa_base_fold_twin_across_chunks(twin):
+    """One chunk of the batch inversion and 3 points more: the first chunk's
+    sums are all the identity (L = -xi R), so its inversion is of one."""
+    xi = 0x1D3F5B79E2C4A6081D3F5B79E2C4A608
+    n = kipa.FOLD_CHUNK + 3
+    rng = random.Random(13)
+    g = AffinePoint.generator(C)
+    r = [rng.randrange(1, Q) for _ in range(n)]
+    right_pts = [g.scalar_mul(v) for v in r]
+    left_pts = [g.scalar_mul(-v * xi % Q) if i < kipa.FOLD_CHUNK else
+                g.scalar_mul(rng.randrange(1, Q)) for i, v in enumerate(r)]
+    left, right = (cdev.affine_from_host(C, p, "cpu") for p in (left_pts, right_pts))
+    got, plain = _fold_twin(twin, left, right, xi)
+    want = [a + b.scalar_mul(xi) for a, b in zip(left_pts, right_pts)]
+    assert all(p.is_identity() for p in want[:kipa.FOLD_CHUNK])
+    assert cdev.affine_to_host(C, plain) == want
+    assert torch.equal(got, plain)
+
+
+def _digit_value(code):
+    """The digit of `code` as an integer mod the order (w -> lambda)."""
+    if not code:
+        return 0
+    d = next(d for c, d in kipa.digit_table().values() if c == code)
+    return (d[0] + d[1] * LAMBDA) % Q
+
+
+def test_ipa_fold_schedule():
+    """xi's digits: their value is xi mod the order, a nonzero digit is
+    followed by a zero, and a random xi takes about 126 digits of which
+    about 3/7 are nonzero."""
+    rng = random.Random(14)
+    lengths, nonzero = [], []
+    for xi in [0, 1, 2, 11, Q - 1, LAMBDA] + [rng.randrange(Q) for _ in range(40)]:
+        codes = kipa.digits(C, xi)
+        acc = 0
+        for code in codes:
+            acc = (2 * acc + _digit_value(code)) % Q
+        assert acc == xi % Q
+        assert all(not (a and b) for a, b in zip(codes, codes[1:]))
+        lengths.append(len(codes))
+        nonzero.append(sum(1 for c in codes if c))
+    assert kipa.digits(C, 0) == [] and kipa.digits(C, 1) == [kipa.NONZERO]
+    assert max(lengths) <= 130 and 120 <= sum(lengths[6:]) / 40 <= 130
+    assert 48 <= sum(nonzero[6:]) / 40 <= 60
 
 
 def _ints(n, seed):

@@ -20,6 +20,7 @@ from plonkish_tpu_torch.curves.specs import GRUMPKIN_G1
 from plonkish_tpu_torch.fields import limb
 from plonkish_tpu_torch.fields.host import Fp
 from plonkish_tpu_torch.fields.spec import BN254_FR
+from plonkish_tpu_torch.kernels import ipa as kipa
 from plonkish_tpu_torch.models import circuits
 from plonkish_tpu_torch.piop.sum_check import ProverState, VirtualPolynomial
 from plonkish_tpu_torch.poly.multilinear import MLPoly
@@ -83,27 +84,50 @@ def test_kernel_counts_by_hand():
 
 
 def test_base_fold_counts_the_glv_split():
-    """The IPA base fold's least work: Shamir over the GLV halves of xi, one
-    mixed addition for L, a batch inversion and the affine output."""
+    """The IPA base fold's work in the design csrc/ipa.cu runs: xi's
+    GLV halves as a width-2 NAF over the Eisenstein integers (a doubling
+    per digit below the top, a mixed addition per nonzero digit below it),
+    the table of 16 products unless every digit is +-1, one mixed addition
+    for L, a batch inversion and the affine output (7 products a point)."""
     inv = (Q - 2).bit_length() + bin(Q - 2).count("1")  # one Fermat inversion
     out_bytes = 5 * 3 * 2 * 32
-    # xi = 0 and 1: no doubling; k2 = 0, so no table of R + phi(R)
-    assert roofline.base_fold_work(GRUMPKIN_G1, 5, 0) == ((5 * (11 + 7) + inv) * 256, out_bytes)
+    # xi = 0: the fold is L; xi = 1: one digit, L + R and the affine output
+    assert roofline.base_fold_work(GRUMPKIN_G1, 5, 0) == (0, out_bytes)
     assert roofline.base_fold_work(GRUMPKIN_G1, 5, 1) == ((5 * (11 + 7) + inv) * 256, out_bytes)
-    # 0b1011: 3 doublings, 2 additions after the top bit
+    # 11 = 16 - 4 - 1: digits 1 0 -1 0 -1, 4 doublings, 2 additions after the top
+    assert kipa.digits(GRUMPKIN_G1, 11) == [16, 0, 24, 0, 24]
     assert roofline.base_fold_work(GRUMPKIN_G1, 5, 11) == (
-        (5 * (3 * 7 + 2 * 11 + 11 + 7) + inv) * 256, out_bytes)
-    # a random xi: both halves of about 128 bits, so about half the
-    # doublings of a plain ladder over xi's 254 bits
+        (5 * (4 * 7 + 2 * 11 + 11 + 7) + inv) * 256, out_bytes)
+    # a random xi: about 126 digits, 3/7 of them nonzero
     xi = random.Random(6).randrange(GRUMPKIN_G1.scalar.p)
     k1, k2 = (abs(v) for v in cdev._glv_split(GRUMPKIN_G1, xi))
     assert max(k1, k2).bit_length() <= 130
-    joint = k1 | k2
-    per_point = (1 + 11 + 7 * (joint.bit_length() - 1) + 11 * (bin(joint).count("1") - 1)
-                 + 11 + 7)
+    codes = kipa.digits(GRUMPKIN_G1, xi)
+    nonzero = sum(1 for c in codes if c)
+    per_point = 16 + 7 * (len(codes) - 1) + 11 * (nonzero - 1) + 11 + 7
     ops, _ = roofline.base_fold_work(GRUMPKIN_G1, 1 << 19, xi)
     assert ops == ((1 << 19) * per_point + inv) * 256
-    assert per_point < 2100
+    assert per_point < 1600
+    # its two kernels: the ladder (Jacobian out) and the conversion
+    ladder_ops, ladder_bytes = roofline.fold_ladder_work(GRUMPKIN_G1, 1 << 19, xi)
+    affine_ops, affine_bytes = roofline.fold_affine_work(GRUMPKIN_G1, 1 << 19)
+    assert ladder_ops + affine_ops == ops
+    assert (ladder_bytes, affine_bytes) == ((1 << 19) * 7 * 32, (1 << 19) * 5 * 32)
+
+
+def test_round_message_latency_bound():
+    """K6's least time is its shortest dependent chain: 24 rounds of 7
+    dependent instructions a permutation at 4 cycles each, and the products
+    on the chain: one out of Montgomery form, then a balanced tree of a
+    Lagrange term's degree + 1 factors (4 at degree 5; 3 in the
+    Coefficients round)."""
+    assert [roofline.fs_round_latency_products(d) for d in (1, 2, 3, 4, 5, 7, 8, 32)] == [
+        2, 3, 3, 4, 4, 4, 5, 7]
+    assert roofline.FS_COEFF_LATENCY_PRODUCTS == 3
+    assert roofline.fs_permutations(32, 6) == 2 and roofline.fs_permutations(32, 3) == 1
+    ms = roofline.fs_latency_ms(2, 6, 1e-7, clock_hz=2e9)
+    assert ms == pytest.approx((2 * 24 * 7 * 4 / 2e9 + 6e-7) * 1e3)
+    assert roofline.fs_latency_ms(1, 4, 0.0, clock_hz=2e9) < ms
 
 
 def test_sumcheck_counts_by_hand_at_k3():

@@ -16,11 +16,14 @@ Phases, each printed on its own line; any failure exits non-zero:
    k; 185 registers, kept in a local array), and the deciders of Protostar and Sangria over each
    of the two vanilla circuits; over Fq: vanilla PLONK, vanilla PLONK with
    lookups and Protostar's vanilla decider, the IPA path's), with each one's
-   ptxas line and build seconds; the vanilla and lookup kernels must have a
-   0-byte stack frame and no spills; print the card.  The two sha256 tapes
-   take about two minutes each: they build in a thread of their own through
-   phases 2 and 3, and are printed and held against their plain version
-   (as phase 2 holds the others) once they are built, before phase 4.  The
+   ptxas line and build seconds beside those before K7 joined the tape's
+   source; each tape's library also holds K7, the fused sum-check rounds
+   (csrc/sumcheck_fused.cuh), whose ptxas line is printed too; the vanilla
+   and lookup tapes' K3 and K7 must have a 0-byte stack frame and no spills;
+   print the card.  The sha256 tape takes about four minutes to build: it
+   builds in a thread of its own through phases 2-9, and is printed and
+   held against its plain version (as phase 2 holds the others, K3 and
+   K7) once it is built, after phase 9 and before phase 10 runs it.  The
    library holds K6, the device transcript's round message
    (csrc/fiat_shamir.cu), whose four kernels must have a 0-byte stack frame
    and no spills, and the IPA fold's ladder and affine conversion, each
@@ -41,7 +44,13 @@ Phases, each printed on its own line; any failure exits non-zero:
    the mont_mul chain probe K5 with both multipliers at 2^16 elements; K6
    over Fr and Fq at degrees 1, 2, 3, 5, 9 and 32 from sponges with 0, 32,
    80, 120 and 128 bytes pending (0 and 128 at degree 32), and ten chained
-   rounds with the Coefficients round beside each);
+   rounds with the Coefficients round beside each); K7 over every round of
+   a sum-check of every phase-1 tape over Fr and Fq at k = 12 and of vanilla
+   at k = 17, from sponges with 0, 32, 80 and 120 bytes pending: messages,
+   challenges, sponge words and final tables exactly (the k = 12 checks in
+   processes of their own, beside phase 2 and, for the sha256 tape, split
+   into runs of rounds beside phase 3, each waited for before the next
+   phase);
 3. the nine frozen HyperPlonk proofs of tests/golden (KZG k3, k5 and lookup
    k5; Gemini, Zeromorph, IPA and Hyrax k5; Brakedown k3 and k5) and the
    Protostar decider proof (KZG, k3, after two folds) produced on the card,
@@ -50,9 +59,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    circuit at k = 20: setup, preprocess, a warm-up prove, a timed prove with
    its span breakdown and kernel launch counts, verify, and a flipped byte
    rejected; the timed prove must build no K3 kernel (the count of
-   generated kernels is printed); then the prove again with
-   PLONKISH_TPU_DEVICE_FS=0 (the host transcript, no K6), timed, its proof
-   equal to the device transcript's byte for byte;
+   generated kernels is printed) and must launch K7 once (the zero-check)
+   and, with the handover at every round, no K3 and no K6 Evaluations
+   round; then the prove again with PLONKISH_TPU_FUSED_ROUNDS=0 (K3, K6
+   and K4 once a round, no K7) and with PLONKISH_TPU_DEVICE_FS=0 (the host
+   transcript, no K6 and no K7), each timed, each proof equal to the
+   default prove's byte for byte;
 5. each kernel timed with CUDA events at the shapes of the k = 20 proves (K5
    at 2^22 elements, 16 products deep, both multipliers), beside its plain
    version and the least time the card could take; the operation and byte
@@ -65,9 +77,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    and the IPA base fold's two kernels at 2^19 points (beside the whole
    fold's bound); K5 at one element, 16 deep and with no product (one
    product's latency, the launch floor); K6 a launch, both rounds, beside
-   its latency bound;
+   its latency bound; K7 over the k = 20 zero-check's 20 rounds beside the
+   same rounds launched one by one and its bound, each round alone against
+   K3 + K6 + K4 at its size (the handover rule), the tail from 2^12 pairs;
 6. the bench harness in process (plonkish_tpu_torch.benchmark): the
-   zero_check system at k = 18 (20 until phase 11 came) and the pcs kzg
+   zero_check system at k = 16 (20 until phase 11 came, 18 until K7) and the pcs kzg
    system at k = 20, whose rows are read back from
    target/bench_torch/, with the launch counts of the five kernels of that
    path;
@@ -76,10 +90,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    to the curve on the card), preprocess, a warm-up prove, a timed prove
    with its span breakdown and launch counts (K1 and K2 on Grumpkin, K3 and
    K4 over Fq, the IPA base fold), verify, and a flipped byte rejected; then
-   the harness's pcs system at k = 16 for gemini, zeromorph, hyrax,
+   the harness's pcs system at k = 14 for gemini, zeromorph, hyrax,
    brakedown and ipa, with the rows read back (k = 20 until phase 8 came,
-   18 until the script ran past its time on a slower host: PERF.md keeps
-   those rows);
+   18 until the script ran past its time on a slower host, 16 until K7:
+   PERF.md keeps those rows);
 8. folding at full size: Protostar over BN254 with multilinear KZG on the
    random vanilla-PLONK circuit of phase 4 at k = 20: setup, preprocess, then
    timed, two folds (the circuit of phase 4 and one with another witness)
@@ -87,22 +101,25 @@ Phases, each printed on its own line; any failure exits non-zero:
    decider's ms, the span breakdown, the peak device memory and the launches
    of K1-K4 in that region (each must launch, and no K3 may be built there);
    the decider verified and a flipped byte rejected; then the harness's
-   sangria system at k = 16 in process (20 until phase 11 came, then 18),
+   sangria system at k = 14 in process (20 until phase 11 came, then 18,
+   16 until K7),
    its fold and decider rows read back;
-9. univariate (halo2-style) PLONK over BN254 with the univariate KZG on the
-   circuit of phase 4 at k = 20: setup (4 * 2^20 powers), preprocess with its
-   spans, a warm-up prove, a timed prove with its spans, peak device memory
-   and launches (K1 and K2 must launch, K3 and K4 must not), verify, and a
-   flipped byte rejected; one forward NTT of 2^22 points timed; then the
-   harness's univariate_plonk row at k = 16;
+9. univariate (halo2-style) PLONK over BN254 with the univariate KZG on a
+   random vanilla-PLONK circuit at k = 18 (phase 4's at k = 20 until K7):
+   setup (4 * 2^18 powers), preprocess with its spans, a warm-up prove, a
+   timed prove with its spans, peak device memory and launches (K1 and K2
+   must launch, K3, K4 and K7 must not), verify, and a flipped byte
+   rejected; one forward NTT of 2^20 points timed; then the harness's
+   univariate_plonk row at k = 16;
 10. HyperPlonk over BN254 with multilinear KZG on the harness's benchmark
    circuits: the aggregation ladder at k = 20 (the reference's default
-   workload; phase 4's SRS) and sha256 at k = 16 (468 blocks: its Python
+   workload; phase 4's SRS) and sha256 at k = 12 (29 blocks: its Python
    synthesis takes about 30 ms a block, so k = 20's 7,489 blocks would take
-   about 220 s before any prove), each synthesised, preprocessed, proved
-   (warm-up, then timed with spans, peak and K1-K4 launches, no K3 built),
-   verified and a flipped byte rejected; then the harness's hyperplonk rows
-   of aggregation at k = 18 and sha256 at k = 14.  Phase 11 (b)'s ranks
+   about 220 s before any prove; 16 until K7), each synthesised,
+   preprocessed, proved (warm-up, then timed with spans, peak and kernel
+   launches, no K3 built), verified and a flipped byte rejected; then the
+   harness's hyperplonk rows of aggregation at k = 16 (18 until K7) and
+   sha256 at k = 12 (14 until K7).  Phase 11 (b)'s ranks
    start with this phase and set up beside the aggregation synthesis;
    nothing here touches the card again before they are set up;
 11. the sharded prover (plonkish_tpu_torch.parallel) on phase 4's circuit at
@@ -117,16 +134,22 @@ Phases, each printed on its own line; any failure exits non-zero:
    prove time, collectives, bytes and peak device memory are printed (one
    card, so no scaling is claimed: the two ranks share it);
 12. the device transcript on phase 4's circuit and params at k = 20: the
-   zero-check's per-round split with the host transcript and the device one
-   (plonkish_tpu_torch.profile_zero_check), the device rounds enqueued under
+   zero-check's per-round split with the host transcript, the device one a
+   round at a time and the fused one (plonkish_tpu_torch.profile_zero_check),
+   the device rounds of both enqueued under
    torch.cuda.set_sync_debug_mode("error") up to their one transfer; then
    the MSM bench (plonkish_tpu_torch.bench) at 2^20 in process, its device
    point equal to the native one.
 
-Phases 3-11 run with the device transcript on (PLONKISH_TPU_DEVICE_FS's
-default): each sum-check round on the card enqueues K3, K6 and K4 with no
-host read, so each of their equality checks holds K6 too; a prove must
-launch K6 (FS_KERNELS) as it launches K1-K4.
+Phases 3-11 run with the device transcript and the fused rounds on
+(PLONKISH_TPU_DEVICE_FS's and PLONKISH_TPU_FUSED_ROUNDS's defaults): each
+Evaluations sum-check on the card is one launch of K7 (K3's sums, K6's
+message and K4's fold a round), and each batch open's round enqueues its
+sums, K6 and K4, with no host read, so each of their equality checks holds
+K6 and K7 too; a prove must launch K7 once for each Evaluations sum-check
+and K6's Coefficients round as it launches K1, K2 and K4 (PROVER_KERNELS).
+Where the rows are sharded over a mesh (phase 11) the rounds launch K3, K6
+and K4 one by one until the rows are gathered.
 
 The last three lines of standard output are the kernels JSON line, the card
 as nvidia-smi reports it, and the result line.  The script imports no JAX
@@ -146,21 +169,49 @@ K_FULL = 20
 # harness rows cut so that the script fits its time on a slow host: phase 7's
 # pcs rows from 20 to 18 (for phase 8), then to 16, phase 8's sangria row from
 # 20 to 18 (for phase 11), then to 16
-K_PCS_ROWS = 16
-K_SANGRIA_ROW = 16
-K_ZERO_CHECK_ROW = 18  # phase 6's zero_check row, cut from 20 for the same reason
-MSM_SUMCHECK_KERNELS = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold")
+K_PCS_ROWS = 14  # 16 until phase 2 came to hold K7 against its plain version for every tape
+K_SANGRIA_ROW = 14  # 16 until then
+# phase 9's univariate PLONK: phase 4's k until phase 2 came to hold K7 against
+# its plain version for every tape, then its own circuit at 18
+K_UNIVARIATE = 18
+# phase 6's zero_check row, cut from 20 for the same reason, then from 18 to 16
+# when phase 2 came to hold K7 against its plain version for every tape
+K_ZERO_CHECK_ROW = 16
+MSM_KERNELS = ("msm_bucket_sums", "msm_window_sums")
 # K6, the device transcript's round message: the zero-check's rounds and the
 # batch open's degree-2 rounds
 FS_KERNELS = ("fs_round_message", "fs_coeff_message")
+# K3 and K6's Evaluations round: an Evaluations sum-check's rounds launched one
+# by one (PLONKISH_TPU_FUSED_ROUNDS=0, the rounds above the handover, the
+# rounds sharded over a mesh)
+ROUND_KERNELS = ("sumcheck_round", "fs_round_message")
+# K7, the fused rounds: one launch for each Evaluations sum-check of a prove
+FUSED_KERNEL = "sumcheck_fused"
+# the build seconds of each tape's library before K7 joined K3 in it (the
+# parent tree's phase 1 on an NVIDIA H100 80GB HBM3 at 700 W), keyed as
+# k3_cases
+BUILD_SECONDS_BEFORE_K7 = {
+    ("Fr", "vanilla"): 20.3, ("Fr", "lookup"): 23.7, ("Fq", "vanilla"): 20.6,
+    ("Fq", "lookup"): 23.1, ("Fr", "aggregation"): 23.7, ("Fr", "protostar_vanilla"): 22.9,
+    ("Fr", "protostar_lookup"): 26.2, ("Fr", "sangria_vanilla"): 21.0,
+    ("Fr", "sangria_lookup"): 24.4, ("Fq", "protostar_vanilla"): 23.7,
+    ("Fr", "single_leaf"): 12.9, ("Fr", "wide"): 30.3, ("Fr", "sha256_k16"): 164.2,
+    ("Fr", "sha256_k14"): 166.6,
+}
+# K7's buffers, in the order kernels/sumcheck.py fused_rounds takes them
+FUSED_ORDER = ("ids", "rows", "sponge", "scal", "fixed", "out", "ch_mont")
 # phase 2's K6 cases: degree 9 is the widest of phase 1's tapes, 32 the
 # widest K6 takes (checked from 0 and 128 pending bytes only: its plain
 # version takes a second a case); 128 pending bytes fill the rate with the
 # first lane
 FS_DEGREES = (1, 2, 3, 5, 9, 32)
+K_FUSED_CHECK = 12  # phase 2's K7 checks: every tape's sum-check at this k
 FS_PENDING = (0, 32, 80, 120, 128)
 FS_WIDEST_PENDING = (0, 128)
-PROVER_KERNELS = MSM_SUMCHECK_KERNELS + FS_KERNELS
+# a default prove: K1, K2, K4 and K6's Coefficients round (the batch open), K7
+PROVER_KERNELS = MSM_KERNELS + ("sumcheck_fold", "fs_coeff_message", FUSED_KERNEL)
+# a prove with PLONKISH_TPU_FUSED_ROUNDS=0, or on a mesh
+PER_ROUND_KERNELS = MSM_KERNELS + ("sumcheck_round", "sumcheck_fold") + FS_KERNELS
 # the decider tapes of phase 8, the harness's sangria and the IPA path:
 # (name, scheme, circuit of models.circuits)
 DECIDERS = (
@@ -171,9 +222,13 @@ DECIDERS = (
 )
 # the IPA base fold is two launches: the ladder and the affine conversion
 IPA_KERNELS = PROVER_KERNELS + ("ipa_base_fold", "ipa_fold_affine")
-K_SHA256 = 16  # phase 10's sha256 circuit: 468 blocks (k = 20 would be 7,489)
-# harness rows of 9 and 10
-K_UNIVARIATE_ROW, K_AGGREGATION_ROW, K_SHA256_ROW = 16, 18, 14
+# phase 10's sha256 circuit: 29 blocks (k = 20 would be 7,489), cut from 16
+# and its harness row from 14 to one k when phase 2 came to hold K7 against
+# its plain version for every tape: one sha256 tape to build and check, not
+# two, and its proves a quarter of the rows
+K_SHA256 = 12
+# harness rows of 9 and 10 (aggregation's cut from 18 to 16 with K_SHA256)
+K_UNIVARIATE_ROW, K_AGGREGATION_ROW, K_SHA256_ROW = 16, 16, 12
 # phase 10's zero-check tapes: (circuit, k).  The sha256 expression holds the
 # permutation's identity offsets i * 2^k, and where one equals a bit weight
 # 2^j of the gates the two constants share a row of the tape's constant
@@ -183,8 +238,8 @@ BENCH_TAPES = {
     f"sha256_k{K_SHA256}": ("sha256", K_SHA256),
     f"sha256_k{K_SHA256_ROW}": ("sha256", K_SHA256_ROW),
 }
-# the sha256 tapes take about two minutes each to build: they build in the
-# background through phases 2 and 3, and are checked before phase 4
+# the sha256 tape takes about four minutes to build: it builds in the
+# background through phases 2-9, and is checked before phase 10
 LATE_TAPES = tuple(name for name, (circuit, _) in BENCH_TAPES.items() if circuit == "sha256")
 NEW_PCS = ("gemini", "zeromorph", "hyrax", "brakedown", "ipa")
 
@@ -245,20 +300,20 @@ def main() -> int:
     phase2_round_message(torch)
     at(3)
     phase3_golden(torch, here)
-    late_round_kernels(torch, late, structures)
     at(4)
-    main_path, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
+    paths, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
     at(5)
-    kernels = phase5_timing(torch, shapes, main_path)
+    kernels = phase5_timing(torch, shapes, paths)
     at(6)
-    harness_path = phase6_harness(K_FULL, LAUNCHES, reset_launches)
+    paths["harness"] = phase6_harness(K_FULL, LAUNCHES, reset_launches)
     at(7)
-    ipa_path = phase7_ipa(torch, K_FULL, LAUNCHES, reset_launches)
+    paths["ipa"], paths["ipa_per_round"] = phase7_ipa(torch, K_FULL, LAUNCHES, reset_launches)
     phase7_harness(K_PCS_ROWS, LAUNCHES, reset_launches)
     at(8)
     phase8_folding(torch, K_FULL, LAUNCHES, reset_launches, shapes)
     at(9)
-    phase9_univariate(torch, K_FULL, LAUNCHES, reset_launches, shapes)
+    phase9_univariate(torch, K_UNIVARIATE, LAUNCHES, reset_launches, shapes)
+    late_round_kernels(torch, late, structures)  # the sha256 tape, before phase 10 runs it
     at(10)
     ranks = SharedCardRanks(K_FULL, shapes["srs_path"])
     try:
@@ -270,11 +325,7 @@ def main() -> int:
     at(12)
     phase12_device_fs(torch, K_FULL, shapes, native)
     for row in kernels:  # each kernel's launches on the path that runs it
-        if row["name"] == "mont_mul_chain":
-            row["launches"] = harness_path["mont_mul_chain"]
-        elif row["path"] == "ipa":
-            row["launches"] = ipa_path[row["counter"]]
-        del row["path"], row["counter"]
+        row["launches"] = paths[row.pop("path")][row.pop("counter")]
     log(f"[done] {time.time() - t_start:.1f}s")
 
     print(json.dumps({"kernels": kernels}))
@@ -675,24 +726,37 @@ def late_round_kernels(torch, late, structures):
     log_round_builds(cases, result["kernels"])
     gen = torch.Generator().manual_seed(4)
     check_round_kernels(torch, k3_bench_cases(torch, 17, gen, LATE_TAPES), structures)
+    check_fused_kernels(torch, k3_bench_cases(torch, K_FUSED_CHECK, gen, LATE_TAPES),
+                        random.Random(15))
 
 
 def log_round_builds(cases, kernels):
-    """Each K3 build's line; the vanilla and lookup kernels must keep every
-    register in a register."""
+    """Each tape library's lines: K3's and K7's (both built from the tape's one
+    source) with the library's build seconds beside those before K7 joined
+    it; the vanilla and lookup tapes' two kernels must keep every register in
+    a register."""
     from plonkish_tpu_torch.piop.tape import OP_MUL
 
     for (field, name), kern in zip(cases, kernels):
         instrs, num_regs, _, tables, degree, _ = tape_of(cases[(field, name)])
+        before = BUILD_SECONDS_BEFORE_K7.get((field.split("::")[-1], name))
         log(f"[build] K3 {name} over {field}: {len(instrs)} instructions, "
             f"{int((instrs[:, 0] == OP_MUL).sum())} products, {num_regs} tape registers, "
-            f"{tables} tables, degree {degree}: built in {kern.build_seconds:.1f}s; "
+            f"{tables} tables, degree {degree}: built in {kern.build_seconds:.1f}s "
+            f"({'not built before' if before is None else f'{before:.1f}s without K7'}); "
             f"{kern.warps} warps a block, {kern.resident} blocks resident; {kern.ptxas}")
-        frame = re.search(r"sc_round_kernel: (\d+) bytes stack frame, (\d+) bytes spill stores, "
-                          r"(\d+) bytes spill loads", kern.ptxas)
-        if (name in ("vanilla", "lookup")
-                and (frame is None or frame.groups() != ("0", "0", "0") or kern.stack)):
-            fail(f"K3 {name} over {field}: ptxas reports a stack frame or spills: {kern.ptxas}")
+        fused = kern.fused
+        log(f"[build] K7 {name} over {field}: {fused.warps} warps a block, {fused.resident} "
+            f"blocks resident, {fused.regs} registers, {fused.stack} bytes of local memory; "
+            f"{fused.ptxas}")
+        for kernel, ptxas, stack in (("sc_round_kernel", kern.ptxas, kern.stack),
+                                     ("sc_fused_kernel", fused.ptxas, fused.stack)):
+            frame = re.search(kernel + r": (\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", ptxas)
+            if (name in ("vanilla", "lookup")
+                    and (frame is None or frame.groups() != ("0", "0", "0") or stack)):
+                fail(f"{kernel} {name} over {field}: ptxas reports a stack frame or spills: "
+                     f"{ptxas}")
 
 
 def check_round_kernels(torch, cases, structures):
@@ -719,6 +783,60 @@ def check_round_kernels(torch, cases, structures):
         log(f"[kernels] K3 round, {name} expression over {field}, {stacked.shape[0]} tables, "
             f"degree {degree}, {len(instrs)} instructions: 0 mismatches at "
             f"{stacked.shape[1] // 2} pairs and at 1 pair")
+
+
+def fused_buffers(torch, spec, degree, k, pending, rng, device="cuda"):
+    """K7's buffers for the k rounds of a sum-check of `degree` from round 0
+    (FUSED_ORDER): a sponge with `pending` bytes buffered, a random claimed
+    sum and offset, the identity stack and round 0's rows, the Lagrange
+    constants and the message rows."""
+    from plonkish_tpu_torch.fields.host import Fp
+    from plonkish_tpu_torch.piop.sum_check import identity_params, identity_stack
+
+    case = fs_round_case(torch, spec, degree, pending, rng, device)
+    return {"ids": identity_params(spec, 0, Fp.zero(spec), device),
+            "rows": identity_stack(spec, [0] * k, device), "sponge": case["sponge"],
+            "scal": case["scal"], "fixed": case["fixed"],
+            "out": torch.zeros((k, degree + 2, 8), dtype=torch.int32, device=device),
+            "ch_mont": torch.zeros(8, dtype=torch.int32, device=device)}
+
+
+def fused_outputs(torch, case, bufs, plain, first=0, rounds=None):
+    """K7 (or its plain version) over a k3_cases case on copies of `bufs`,
+    from round `first` for `rounds` rounds (all when None): the final state
+    and every buffer it writes."""
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+
+    stacked, instrs, consts, num_regs, out_reg, degree, spec = case
+    b = {n: v.clone() for n, v in bufs.items()}
+    fn = ksc.fused_rounds_plain if plain else ksc.fused_rounds_cuda
+    rounds = rounds or stacked.shape[1].bit_length() - 1
+    b["state"] = fn(spec, stacked.clone(), instrs, consts, num_regs, out_reg, degree,
+                    *(b[n] for n in FUSED_ORDER), first, rounds)
+    return b
+
+
+def check_fused_kernels(torch, cases, rng):
+    """K7 against its plain version for each case of k3_cases, every round of
+    its sum-check (k the case's), from sponges with 0, 32, 80 and 120 bytes
+    pending in turn: the messages and challenges, the sponge's words, the
+    sum and offset, the identity rows and the final tables, exactly."""
+    t0 = time.time()
+    for i, ((field, name), case) in enumerate(cases.items()):
+        stacked, degree, spec = case[0], case[5], case[6]
+        k = stacked.shape[1].bit_length() - 1
+        bufs = fused_buffers(torch, spec, degree, k, FS_PENDING[i % 4], rng, stacked.device)
+        got = fused_outputs(torch, case, bufs, plain=False)
+        want = fused_outputs(torch, case, bufs, plain=True)
+        for key in got:
+            if not torch.equal(got[key], want[key]):
+                fail(f"K7 sumcheck_fused differs from its plain version ({name} expression over "
+                     f"{field}, k={k}): {key}")
+    log(f"[kernels] K7 fused rounds against the plain K3 -> K6 -> K4, every round of "
+        f"{len(cases)} sum-checks ({', '.join(f'{n} over {f}' for f, n in cases)}) at k="
+        f"{sorted({c[0].shape[1].bit_length() - 1 for c in cases.values()})}: messages, "
+        f"challenges, sponge words, sums, identity rows and final tables equal "
+        f"({time.time() - t0:.1f}s)")
 
 
 # ------------------------------------------------------ 2 kernels vs plain
@@ -769,9 +887,14 @@ def phase2_kernels(torch, structures):
             f"{len(kmsm.bucket_level_sizes(keys.numel()))} K1 levels, 0 mismatches{note} "
             f"({time.time() - t0:.1f}s)")
 
-    cases, (state, _) = k3_cases(torch, 17, gen,
-                                 bench=[n for n in BENCH_TAPES if n not in LATE_TAPES])
+    early = [n for n in BENCH_TAPES if n not in LATE_TAPES]
+    cases, (state, _) = k3_cases(torch, 17, gen, bench=early)
     check_round_kernels(torch, cases, structures)
+    # K7 over every round: each tape over Fr and Fq at k = K_FUSED_CHECK, vanilla at k = 17
+    fr = BN254_FR.name
+    check_fused_kernels(torch, {(fr, "vanilla"): cases[(fr, "vanilla")]}, random.Random(14))
+    check_fused_kernels(torch, k3_cases(torch, K_FUSED_CHECK, gen, bench=early)[0],
+                        random.Random(16))
     for spec, stacked in ((BN254_FR, state.stacked),
                           (BN254_FQ, cases[(BN254_FQ.name, "vanilla")][0])):
         ch = limb.const(spec, 0x1234567890ABCDEF, "cuda")
@@ -1077,25 +1200,34 @@ def phase4_full(torch, k, launches, reset_launches):
         f"preprocess {times['preprocess']:.2f}s, SRS written to {srs_path} in "
         f"{times['srs_write']:.2f}s")
 
-    times["prove"], main_path, proof = prove_and_check(
+    times["prove"], main_path, proof, _ = prove_and_check(
         torch, f"k={k}", backend, pp, vp, circuit, BN254_FR, launches, reset_launches,
         must=PROVER_KERNELS)
-    times["prove_host_fs"] = prove_host_transcript(torch, k, backend, pp, circuit, proof,
-                                                   launches, reset_launches)
+    check_fused_launches(f"k={k}", main_path, 1)
+    times["prove_per_round"], per_round_path = prove_again(
+        torch, k, backend, pp, circuit, proof, launches, reset_launches,
+        "PLONKISH_TPU_FUSED_ROUNDS", "K3, K6 and K4 launched each round")
+    check_per_round_launches(f"k={k} PLONKISH_TPU_FUSED_ROUNDS=0", per_round_path, k)
+    times["prove_host_fs"], host_path = prove_again(
+        torch, k, backend, pp, circuit, proof, launches, reset_launches,
+        "PLONKISH_TPU_DEVICE_FS", "the host transcript")
+    if any(host_path[name] for name in FS_KERNELS + (FUSED_KERNEL,)):
+        fail(f"[k={k}] PLONKISH_TPU_DEVICE_FS=0 launched K6 or K7: {json.dumps(host_path)}")
     log(f"[k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
-    return main_path, {"pp": pp, "vp": vp, "k": k, "circuit": (ci, circuit), "param": param,
-                       "proof": proof, "prove_s": times["prove"], "srs_path": srs_path}
+    return ({"kzg": main_path, "kzg_per_round": per_round_path},
+            {"pp": pp, "vp": vp, "k": k, "circuit": (ci, circuit), "param": param,
+             "proof": proof, "prove_s": times["prove"], "srs_path": srs_path})
 
 
-def prove_host_transcript(torch, k, backend, pp, circuit, proof, launches, reset_launches):
-    """The prove again with PLONKISH_TPU_DEVICE_FS=0, timed right after the
-    device-transcript prove: its proof must equal that one byte for byte,
-    and it must launch no K6.  Returns its seconds."""
+def prove_again(torch, k, backend, pp, circuit, proof, launches, reset_launches, flag, what):
+    """The prove again with the environment flag `flag` at 0, timed right
+    after the default prove: its proof must equal that one byte for byte.
+    Returns its seconds and its launches."""
     from plonkish_tpu_torch.fields.spec import BN254_FR
     from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
 
-    saved = os.environ.get("PLONKISH_TPU_DEVICE_FS")
-    os.environ["PLONKISH_TPU_DEVICE_FS"] = "0"
+    saved = os.environ.get(flag)
+    os.environ[flag] = "0"
     try:
         reset_launches()
         tr = Keccak256Transcript(BN254_FR)
@@ -1106,23 +1238,49 @@ def prove_host_transcript(torch, k, backend, pp, circuit, proof, launches, reset
         prove_s = time.time() - t0
     finally:
         if saved is None:
-            os.environ.pop("PLONKISH_TPU_DEVICE_FS")
+            os.environ.pop(flag)
         else:
-            os.environ["PLONKISH_TPU_DEVICE_FS"] = saved
-    fs_launches = {name: launches[name] for name in FS_KERNELS}
+            os.environ[flag] = saved
+    path = dict(launches)
     if tr.into_proof() != proof:
-        fail(f"[k={k}] the proof with PLONKISH_TPU_DEVICE_FS=0 differs from the device "
-             "transcript's")
-    if any(fs_launches.values()):
-        fail(f"[k={k}] PLONKISH_TPU_DEVICE_FS=0 launched K6: {json.dumps(fs_launches)}")
-    log(f"[k={k}] prove with PLONKISH_TPU_DEVICE_FS=0 (the host transcript) {prove_s:.3f}s, "
-        "proof equal to the device transcript's; no K6 launched")
-    return prove_s
+        fail(f"[k={k}] the proof with {flag}=0 differs from the default prove's")
+    log(f"[k={k}] prove with {flag}=0 ({what}) {prove_s:.3f}s, proof equal to the default "
+        f"prove's; kernel launches {json.dumps(path)}")
+    return prove_s, path
+
+
+def check_fused_launches(tag, path, sum_checks):
+    """A default prove's launches: K7 once for each of its `sum_checks`
+    Evaluations sum-checks, and, with the handover at every round
+    (piop/sum_check.py FUSED_MAX_PAIRS None), no K3 and no K6 Evaluations
+    round."""
+    from plonkish_tpu_torch.piop import sum_check as sc
+
+    if path[FUSED_KERNEL] != sum_checks:
+        fail(f"[{tag}] K7 launched {path[FUSED_KERNEL]} times, not once for each of the "
+             f"{sum_checks} Evaluations sum-checks")
+    if sc.FUSED_MAX_PAIRS is None and any(path[name] for name in ROUND_KERNELS):
+        fail(f"[{tag}] K3 or K6's Evaluations round launched though K7 takes every round: "
+             f"{json.dumps(path)}")
+
+
+def check_per_round_launches(tag, path, rounds):
+    """A prove whose Evaluations sum-check runs `rounds` rounds launched one by
+    one: K3 and K6's Evaluations round once a round, every per-round kernel
+    launched, and no K7."""
+    if path["sumcheck_round"] != rounds or path["fs_round_message"] != rounds:
+        fail(f"[{tag}] K3 and K6 did not launch once for each of the {rounds} rounds: "
+             f"{json.dumps(path)}")
+    for name in PER_ROUND_KERNELS:
+        if path[name] <= 0:
+            fail(f"[{tag}] kernel {name} was not launched")
+    if path[FUSED_KERNEL]:
+        fail(f"[{tag}] K7 was launched where the rounds run one by one")
 
 
 # ------------------------------------------------------ 5 kernel timing
 
-def phase5_timing(torch, shapes, main_path):
+def phase5_timing(torch, shapes, paths):
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.curves.specs import BN254_G1
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -1269,24 +1427,28 @@ def phase5_timing(torch, shapes, main_path):
         f"{round_bounds[0]:.3f} ms); per round {[round(v, 4) for v in per_round]}")
 
     new_rows = timing_new_instantiations(torch, k, gen, peaks)
-    fs_rows = timing_round_message(torch, state.degree, peaks, main_path, product_s,
+    fs_rows = timing_round_message(torch, state.degree, peaks, paths, product_s,
                                    one_ms[0])
+    fused_rows = timing_fused(torch, state, prover, peaks, paths, product_s)
 
     rows_out = []
-    for name, source_file, replaces, ms, plain_ms, err, work in (
-        ("msm_bucket_sums", "plonkish_tpu_torch/csrc/msm.cu",
+    # each row's launches are read on the path that runs its kernel: the
+    # default prove, the prove with PLONKISH_TPU_FUSED_ROUNDS=0 (K3 and K6's
+    # Evaluations round, which K7 takes on the default path), the harness (K5)
+    for name, path, source_file, replaces, ms, plain_ms, err, work in (
+        ("msm_bucket_sums", "kzg", "plonkish_tpu_torch/csrc/msm.cu",
          "plonkish_tpu/pallas/msm.py:46", k1_ms, k1_plain_ms, k1_err,
          roofline.bucket_sums_work(n, m, unique)),
-        ("msm_window_sums", "plonkish_tpu_torch/csrc/msm.cu",
+        ("msm_window_sums", "kzg", "plonkish_tpu_torch/csrc/msm.cu",
          "plonkish_tpu/pallas/msm.py:119", k2_ms, k2_plain_ms, k2_err,
          roofline.window_sums_work(w, nb, c)),
-        ("sumcheck_round", "plonkish_tpu_torch/csrc/sumcheck.cuh",
+        ("sumcheck_round", "kzg_per_round", "plonkish_tpu_torch/csrc/sumcheck.cuh",
          "plonkish_tpu/pallas/sumcheck.py:159", k3_ms, k3_plain_ms, k3_err,
          roofline.round_work(t_count, pairs, state.degree, n_mul)),
-        ("sumcheck_fold", "plonkish_tpu_torch/csrc/sumcheck.cu",
+        ("sumcheck_fold", "kzg", "plonkish_tpu_torch/csrc/sumcheck.cu",
          "plonkish_tpu/pallas/sumcheck.py:225", k4_ms, k4_plain_ms, k4_err,
          roofline.fold_work(t_count, pairs)),
-        ("mont_mul_chain", "plonkish_tpu_torch/csrc/probe.cu",
+        ("mont_mul_chain", "harness", "plonkish_tpu_torch/csrc/probe.cu",
          "scripts/validate_pallas_tpu.py:253", k5_ms, k5_plain_ms, k5_err,
          roofline.chain_work(pn, pchain)),
     ):
@@ -1297,18 +1459,19 @@ def phase5_timing(torch, shapes, main_path):
         b_ms, b_by, b_src = roofline.bound_ms(*work, None if own else peaks)
         rows_out.append({
             "name": name, "route": "cuda", "source": source_file, "replaces": replaces,
-            "launches": main_path[name], "max_abs_err": 0, "ms": ms,
+            "launches": 0, "max_abs_err": 0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "path": "kzg", "counter": name,
+            "library_ms": None, "path": path, "counter": name,
         })
         extra = f", f32 variant {k5_f32_ms:.3f} ms" if own else ""
+        count = (f"{paths[path][name]} launches in the {path} prove" if path in paths
+                 else "launches read on the harness path")
         log(f"[timing] {name}: {ms:.3f} ms{extra} (plain {plain_ms:.1f} ms, bound "
-            f"{b_ms:.3f} ms by {b_by} at the {b_src} rate), {main_path[name]} launches "
-            "in the prove")
-    return rows_out + fs_rows + new_rows
+            f"{b_ms:.3f} ms by {b_by} at the {b_src} rate), {count}")
+    return rows_out + fs_rows + fused_rows + new_rows
 
 
-def timing_round_message(torch, degree, peaks, main_path, product_s, floor_ms):
+def timing_round_message(torch, degree, peaks, paths, product_s, floor_ms):
     """K6 at the main path's shapes (the zero-check's degree over Fr, its
     sponge in the steady state of 32 bytes pending; the batch open's
     Coefficients round), each launch on the buffers the last one advanced,
@@ -1316,7 +1479,7 @@ def timing_round_message(torch, degree, peaks, main_path, product_s, floor_ms):
     enqueue), against its plain version once on the same inputs, beside its latency
     bound (roofline.fs_latency_ms at `product_s`, one product's latency)
     and the launch floor (K5 at one element with no product).  Rows of the
-    kernels line; their launches are read on the main path."""
+    kernels line; their launches are read on the path that runs them."""
     from plonkish_tpu_torch import roofline
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FR
@@ -1366,11 +1529,11 @@ def timing_round_message(torch, degree, peaks, main_path, product_s, floor_ms):
     coeff_latency = roofline.fs_latency_ms(
         roofline.fs_permutations(32, 3), roofline.FS_COEFF_LATENCY_PRODUCTS, product_s)
     rows = []
-    for name, replaces, ms, host_ms, plain_ms, err, work, latency in (
-        ("fs_round_message", "plonkish_tpu/piop/fiat_shamir.py:314", round_ms, round_host_ms,
-         round_plain_ms, round_err, round_work, round_latency),
-        ("fs_coeff_message", "plonkish_tpu/piop/fiat_shamir.py:396", coeff_ms, coeff_host_ms,
-         coeff_plain_ms, coeff_err, coeff_work, coeff_latency),
+    for name, path, replaces, ms, host_ms, plain_ms, err, work, latency in (
+        ("fs_round_message", "kzg_per_round", "plonkish_tpu/piop/fiat_shamir.py:314", round_ms,
+         round_host_ms, round_plain_ms, round_err, round_work, round_latency),
+        ("fs_coeff_message", "kzg", "plonkish_tpu/piop/fiat_shamir.py:396", coeff_ms,
+         coeff_host_ms, coeff_plain_ms, coeff_err, coeff_work, coeff_latency),
     ):
         if err:
             fail(f"K6 {name} differs from its plain version at the main path's shapes")
@@ -1379,17 +1542,125 @@ def timing_round_message(torch, degree, peaks, main_path, product_s, floor_ms):
         rate_ms, _, b_src = roofline.bound_ms(*work, peaks)
         rows.append({
             "name": name, "route": "cuda", "source": "plonkish_tpu_torch/csrc/fiat_shamir.cuh",
-            "replaces": replaces, "launches": main_path[name], "max_abs_err": 0, "ms": ms,
+            "replaces": replaces, "launches": 0, "max_abs_err": 0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": latency, "bound_by": "operations",
-            "library_ms": None, "path": "kzg", "counter": name,
+            "library_ms": None, "path": path, "counter": name,
         })
         log(f"[timing] K6 {name}: {ms * 1e3:.2f} us a launch in a CUDA graph, "
             f"{host_ms * 1e3:.2f} us launched one by one from Python (plain {plain_ms:.1f} ms, "
             f"bound {latency * 1e3:.3f} us by the latency of its shortest dependent chain, "
             f"{100 * latency / ms:.1f} % of it; its operations over the {b_src} rate "
             f"{rate_ms * 1e3:.4f} us; launch floor {floor_ms * 1e3:.3f} us), "
-            f"{main_path[name]} launches in the prove")
+            f"{paths[path][name]} launches in the {path} prove")
     return rows
+
+
+def timing_fused(torch, state, prover, peaks, paths, product_s):
+    """K7 at the k-variable zero-check's shapes (phase 5's vanilla state over
+    Fr; the sponge in the steady state of 32 bytes pending), timed with CUDA
+    events, each run on a copy of the state made before its events, in turns
+    with the same rounds launched one by one (K3 -> K6 -> K4): the rounds
+    from round r to the last, for every r.  All k rounds give K7's time
+    beside the per-round device time and K7's bound
+    (roofline.fused_bound_ms); the difference of two neighbouring runs, a
+    round's own time on each path, without the host's work before the first
+    launch, which decides the handover (K7's round 0 no slower than 1.05
+    times K3 + K6 + K4's: every round; else the largest pair count at which
+    it is no slower; else 2^12); the rounds from 2^12 pairs, the tail.  Its
+    plain version once, equal in every buffer.  A row of the kernels line."""
+    from plonkish_tpu_torch import roofline
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.piop import fiat_shamir as fs
+    from plonkish_tpu_torch.piop import sum_check as sc
+    from plonkish_tpu_torch.piop.tape import OP_MUL
+
+    spec, k, degree, tape = state.spec, state.num_vars, state.degree, prover.tape
+    base = state.stacked
+    t_count, pairs = base.shape[0], base.shape[1] // 2
+    n_mul = int((prover.instrs[:, 0] == OP_MUL).sum())
+    bufs = fused_buffers(torch, spec, degree, k, 32, random.Random(17))
+    tape_args = (prover.instrs, prover.consts, tape.num_regs, tape.out_reg, degree)
+
+    def fused(stacked, first, b):
+        ksc.fused_rounds_cuda(spec, stacked, *tape_args, *(b[n] for n in FUSED_ORDER), first,
+                              k - first)
+
+    def per_round(stacked, first, b):
+        for r in range(first, k):
+            sums = ksc.sumcheck_round_cuda(spec, stacked, *tape_args, b["ids"])
+            fs.round_message(spec, degree, sums, b["scal"], b["sponge"], b["fixed"],
+                             b["rows"][r: r + 2], b["out"][r], b["ch_mont"], b["ids"])
+            stacked = ksc.fold_cuda(spec, stacked, b["ch_mont"])
+
+    def events_ms(fn, stacked, first, reps=3):
+        b = {n: v.clone() for n, v in bufs.items()}
+        fn(stacked.clone(), first, b)  # warm-up
+        total = 0.0
+        for _ in range(reps):
+            copy = stacked.clone()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn(copy, first, b)
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+            del copy
+        return total / reps
+
+    # suffix[r] = (K7 ms, per-round ms) of rounds r..k-1, in turns
+    suffix = []
+    for r in range(k):
+        rows = base[:, : base.shape[1] >> r].contiguous()
+        per = [events_ms(per_round, rows, r)]
+        fus = [events_ms(fused, rows, r) for _ in range(2)]
+        per.append(events_ms(per_round, rows, r))
+        suffix.append((sum(fus) / 2, sum(per) / 2))
+        del rows
+    suffix.append((0.0, 0.0))
+    own = [(suffix[r][0] - suffix[r + 1][0], suffix[r][1] - suffix[r + 1][1]) for r in range(k)]
+    fused_ms, per_round_ms = suffix[0]
+    tail = suffix[k - 13]
+    ratio0 = own[0][0] / own[0][1]
+    if ratio0 <= 1.05:
+        handover, rule = None, f"K7's round 0 takes {ratio0:.3f} of K3 + K6 + K4's: every round"
+    else:
+        fits = [pairs >> r for r, (f, p) in enumerate(own) if f <= p]
+        handover = max(fits) if fits else 1 << 12
+        rule = (f"K7's round 0 takes {ratio0:.3f} of K3 + K6 + K4's: the handover at "
+                f"{handover} pairs")
+    log(f"[timing] K7 sumcheck_fused, the k={k} zero-check's {k} rounds in one launch: "
+        f"{fused_ms:.3f} ms; launched one by one (K3 -> K6 -> K4) {per_round_ms:.3f} ms")
+    log(f"[timing] K7 each round's own time against K3 + K6 + K4's (the runs from it less "
+        f"the runs from the next), ms: {[(round(f, 4), round(p, 4)) for f, p in own]}; "
+        f"13 rounds from 2^12 pairs {tail[0]:.3f} ms against {tail[1]:.3f} ms "
+        f"({1e3 * tail[0] / 13:.1f} and {1e3 * tail[1] / 13:.1f} us a round)")
+    committed = "every round" if sc.FUSED_MAX_PAIRS is None else f"{sc.FUSED_MAX_PAIRS} pairs"
+    measured = "every round" if handover is None else f"{handover} pairs"
+    log(f"[timing] K7 handover: {rule}; piop/sum_check.py FUSED_MAX_PAIRS holds {committed}"
+        f"{'' if committed == measured else ' (this run measured another: see PERF.md)'}")
+
+    case = (base, *tape_args, spec)
+    got = fused_outputs(torch, case, bufs, plain=False)
+    plain_ms, want = timed_once(torch, lambda: fused_outputs(torch, case, bufs, plain=True))
+    if not all(torch.equal(got[key], want[key]) for key in got):
+        fail(f"K7 differs from its plain version at the k={k} zero-check")
+    del got, want
+    latency = roofline.fs_latency_ms(roofline.fs_permutations(32, degree + 1),
+                                     roofline.fs_round_latency_products(degree), product_s)
+    b_ms, b_by = roofline.fused_bound_ms(t_count, pairs, k, degree, n_mul, latency, peaks)
+    log(f"[timing] K7 sumcheck_fused: {fused_ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.3f} ms by {b_by}: each round's larger of K3's and K4's bounds and K6's chain "
+        f"of {latency * 1e3:.3f} us; {100 * b_ms / fused_ms:.1f} % of it), "
+        f"{paths['kzg'][FUSED_KERNEL]} launches in the kzg prove")
+    return [{
+        "name": FUSED_KERNEL, "route": "cuda",
+        "source": "plonkish_tpu_torch/csrc/sumcheck_fused.cuh",
+        "replaces": "plonkish_tpu/piop/sum_check.py:573", "launches": 0, "max_abs_err": 0,
+        "ms": fused_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "path": "kzg", "counter": FUSED_KERNEL,
+    }]
 
 
 def timing_new_instantiations(torch, k, gen, peaks):
@@ -1500,7 +1771,9 @@ def timing_new_instantiations(torch, k, gen, peaks):
             "name": name, "route": "cuda", "source": source_file, "replaces": replaces,
             "launches": 0, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "path": "ipa", "counter": counter,
+            # K3 runs on the IPA path only with the rounds launched one by one
+            "path": "ipa_per_round" if counter == "sumcheck_round" else "ipa",
+            "counter": counter,
         })
         log(f"[timing] {name}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
             f"{b_by} at the {b_src} rate)")
@@ -1542,7 +1815,7 @@ def phase6_harness(k, launches, reset_launches):
         if not all(float(v) > 0 for v in rows[0][1:]):
             fail(f"the harness row of {name} holds no time: {added}")
         log(f"[harness] {name} row: {','.join(rows[0])} ms")
-    for name in MSM_SUMCHECK_KERNELS + ("fs_round_message", "mont_mul_chain"):
+    for name in MSM_KERNELS + (FUSED_KERNEL, "mont_mul_chain"):
         if harness_path[name] <= 0:
             fail(f"kernel {name} was not launched on the harness path")
     return harness_path
@@ -1577,11 +1850,14 @@ def phase7_ipa(torch, k, launches, reset_launches):
     log(f"[ipa k={k}] circuit {times['circuit']:.2f}s, setup {times['setup']:.2f}s (the "
         f"basis kept from phase 5), preprocess {times['preprocess']:.2f}s")
 
-    times["prove"], ipa_path, _ = prove_and_check(
+    times["prove"], ipa_path, _, per_round = prove_and_check(
         torch, f"ipa k={k}", backend, pp, vp, circuit, spec, launches, reset_launches,
-        must=IPA_KERNELS)
-    log(f"[ipa k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
-    return ipa_path
+        must=IPA_KERNELS, warm_env={"PLONKISH_TPU_FUSED_ROUNDS": "0"})
+    check_fused_launches(f"ipa k={k}", ipa_path, 1)
+    check_per_round_launches(f"ipa k={k} warm-up, PLONKISH_TPU_FUSED_ROUNDS=0", per_round, k)
+    log(f"[ipa k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}; the "
+        "warm-up with the rounds launched one by one gave the same proof")
+    return ipa_path, per_round
 
 
 def phase7_harness(k, launches, reset_launches):
@@ -1668,6 +1944,7 @@ def phase8_folding(torch, k, launches, reset_launches, shapes):
     for name in PROVER_KERNELS:
         if fold_path[name] <= 0:
             fail(f"kernel {name} was not launched in the k={k} folds and decider")
+    check_fused_launches(f"fold k={k}", fold_path, 1)  # the decider's sum-check
 
     t0 = time.time()
     scheme.verify_decider_with_last_nark(vp, before.clone(), circuits[2].instances(),
@@ -1717,23 +1994,38 @@ def phase8_folding(torch, k, launches, reset_launches, shapes):
 # ------------------------------------------------------ shared by 9 and 10
 
 def prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_launches,
-                    must, must_not=(), mesh=None):
+                    must, must_not=(), mesh=None, warm_env=None):
     """A warm-up prove, then a timed prove with its spans, peak device memory
     and kernel launches (each of `must` launched, none of `must_not`, no K3
     built or loaded in the timed prove), and, under `mesh`, the collectives
     of the timed prove; the verifier accepting and a flipped byte rejected.
-    Returns (prove seconds, launches, proof)."""
+    With `warm_env` (environment flags), the warm-up proves under those
+    flags, its launches are counted and its proof must equal the timed one.
+    Returns (prove seconds, launches, proof, the warm-up's launches or None)."""
     from plonkish_tpu_torch.kernels import sumcheck_gen
     from plonkish_tpu_torch.utils import timer
     from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
 
     t0 = time.time()
     kernels_before = len(sumcheck_gen.BUILDS)
-    backend.prove(pp, circuit, Keccak256Transcript(spec))
-    torch.cuda.synchronize()
+    saved = {name: os.environ.get(name) for name in warm_env or {}}
+    os.environ.update(warm_env or {})
+    try:
+        reset_launches()
+        warm_tr = Keccak256Transcript(spec)
+        backend.prove(pp, circuit, warm_tr)
+        torch.cuda.synchronize()
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name)
+            else:
+                os.environ[name] = value
+    warm_path = dict(launches) if warm_env else None
     kernels_warm = len(sumcheck_gen.BUILDS)
-    log(f"[{tag}] warm-up prove {time.time() - t0:.2f}s; K3 kernels loaded in this process "
-        f"{kernels_before} before it, {kernels_warm} after it")
+    log(f"[{tag}] warm-up prove {time.time() - t0:.2f}s"
+        f"{f' with {warm_env}, kernel launches {json.dumps(warm_path)}' if warm_env else ''}; "
+        f"K3 kernels loaded in this process {kernels_before} before it, {kernels_warm} after it")
 
     timer.set_sync(torch.cuda.synchronize)
     timer.set_enabled(True)
@@ -1785,7 +2077,9 @@ def prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_
     else:
         fail(f"[{tag}] a proof with a flipped byte was accepted")
     log(f"[{tag}] verify {verify_s:.2f}s; flipped byte rejected")
-    return prove_s, path, proof
+    if warm_env and warm_tr.into_proof() != proof:
+        fail(f"[{tag}] the warm-up's proof with {warm_env} differs from the timed prove's")
+    return prove_s, path, proof, warm_path
 
 
 def harness_row(argv, name, k, columns, launches, reset_launches):
@@ -1826,13 +2120,19 @@ def phase9_univariate(torch, k, launches, reset_launches, shapes):
     from plonkish_tpu_torch.backend.univariate import UnivariatePlonk
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
     from plonkish_tpu_torch.pcs.univariate_kzg import UnivariateKzg
     from plonkish_tpu_torch.poly import ntt
     from plonkish_tpu_torch.utils import timer
 
     spec = BN254_FR
     tag = f"univariate k={k}"
-    ci, circuit = shapes["circuit"]  # phase 11 proves it again
+    if k == shapes["k"]:
+        ci, circuit = shapes["circuit"]
+    else:
+        t0 = time.time()
+        ci, circuit = rand_vanilla_plonk_circuit(spec, k, random.Random(1), random.Random(2))
+        log(f"[{tag}] circuit {time.time() - t0:.2f}s")
     backend = UnivariatePlonk(UnivariateKzg())
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1853,7 +2153,7 @@ def phase9_univariate(torch, k, launches, reset_launches, shapes):
     del param
     prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_launches,
                     must=("msm_bucket_sums", "msm_window_sums"),
-                    must_not=("sumcheck_round", "sumcheck_fold") + FS_KERNELS)
+                    must_not=("sumcheck_round", "sumcheck_fold", FUSED_KERNEL) + FS_KERNELS)
     del backend, pp, vp, ci, circuit
     torch.cuda.empty_cache()
 
@@ -1906,8 +2206,9 @@ def phase10_circuits(torch, k, launches, reset_launches, shapes, ranks):
             f"{len(info.constraints)} constraints, {len(circuit.instances()[0])} instances), "
             f"setup {setup_s:.2f}s{' (phase 4 SRS)' if kk == shapes['k'] else ''}, "
             f"preprocess {pre_s:.2f}s")
-        prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_launches,
-                        must=PROVER_KERNELS)
+        _, path, _, _ = prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches,
+                                        reset_launches, must=PROVER_KERNELS)
+        check_fused_launches(tag, path, 1)
         del backend, pp, vp, param, info, circuit
         torch.cuda.empty_cache()
     for name, kk in (("aggregation", K_AGGREGATION_ROW), ("sha256", K_SHA256_ROW)):
@@ -1996,10 +2297,12 @@ def phase11_sharded(torch, k, launches, reset_launches, shapes, ranks):
         with parallel.use_mesh(mesh):
             sharded.all_reduce_field(BN254_FR, mesh, limb.zeros((1,), mesh.device))
             log(f"[mesh1 nccl] group of one rank on {mesh.device} up in {time.time() - t0:.2f}s")
-            prove_s, path, proof = prove_and_check(
+            # every round's rows are sharded (one rank holds them all, folded
+            # to one row only after the last round): K7 takes none
+            prove_s, path, proof, _ = prove_and_check(
                 torch, f"mesh1 nccl k={k}", HyperPlonk(MultilinearKzg()), shapes["pp"],
                 shapes["vp"], circuit, BN254_FR, launches, reset_launches,
-                must=PROVER_KERNELS, mesh=mesh)
+                must=PER_ROUND_KERNELS, must_not=(FUSED_KERNEL,), mesh=mesh)
             if mesh.collectives <= 0 or mesh.taken["sum_check"] != 2:
                 fail(f"[mesh1 nccl] the prove did not go through the mesh: {dict(mesh.taken)}")
     finally:
@@ -2026,9 +2329,13 @@ def phase11_sharded(torch, k, launches, reset_launches, shapes, ranks):
             f"{r['k3_built']}")
         if r["proof"] != want:
             fail(f"[{tag}] the proof differs from phase 4's unsharded proof")
-        for name in PROVER_KERNELS:
+        for name in PER_ROUND_KERNELS + (FUSED_KERNEL,):
             if r["launches"][name] <= 0:
                 fail(f"[{tag}] kernel {name} was not launched on the rank's rows")
+        # k - 1 sharded rounds one by one, then K7 for the last once the rows are gathered
+        if (r["launches"][FUSED_KERNEL], r["launches"]["sumcheck_round"]) != (1, k - 1):
+            fail(f"[{tag}] the zero-check's sharded rounds or K7 after the gather did not "
+                 f"launch as expected: {json.dumps(r['launches'])}")
         if r["taken"].get("msm", 0) <= 0 or r["taken"].get("sum_check") != 2:
             fail(f"[{tag}] sharded_msm or the sharded sum-checks were not taken: {r['taken']}")
     log(f"[mesh2 gloo k={k}] both ranks' proofs equal phase 4's ({len(want)} bytes)")
@@ -2053,14 +2360,18 @@ def phase12_device_fs(torch, k, shapes, native):
     prof = profile_zero_check.profile(k, "cuda", shapes["circuit"],
                                       log=lambda line: log(f"[profile k={k}] {line}"),
                                       sync_check=True, pp=shapes["pp"])
-    host, dev = prof["host_fs"], prof["device_fs"]
+    host, dev, fused = prof["host_fs"], prof["device_fs"], prof["fused"]
+
+    def device_split(run):
+        return (f"rounds {run['rounds_ms']:.3f} ms (enqueue {run['enqueue_ms']:.3f} under "
+                f"set_sync_debug_mode(\"error\"), device {run['device_ms']:.3f}, one transfer "
+                f"and replay {run['replay_ms']:.3f}), state init {run['init_ms']:.3f} ms")
+
     log(f"[profile k={k}] ({time.time() - t0:.1f}s) host transcript: rounds {host['rounds_ms']:.3f} "
         f"ms (message {host['msg_ms']:.3f}, transcript {host['transcript_ms']:.3f}, fold "
         f"{host['fold_ms']:.3f}; K3 {host['k3_ms']:.3f}, K4 {host['k4_ms']:.3f}), state init "
-        f"{host['init_ms']:.3f} ms; device transcript: rounds {dev['rounds_ms']:.3f} ms (enqueue "
-        f"{dev['enqueue_ms']:.3f} under set_sync_debug_mode(\"error\"), device "
-        f"{dev['device_ms']:.3f}, one transfer and replay {dev['replay_ms']:.3f}), state init "
-        f"{dev['init_ms']:.3f} ms; same challenges and evaluations")
+        f"{host['init_ms']:.3f} ms; device transcript, a round at a time: {device_split(dev)}; "
+        f"fused (K7): {device_split(fused)}; same challenges and evaluations")
 
     thread, result = native
     t0 = time.time()

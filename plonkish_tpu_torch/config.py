@@ -6,11 +6,11 @@ environment at each call, under the JAX package's names and defaults:
 | PLONKISH_TPU_TIMER      | 0/1    | timing spans (utils/timer.py reads it once, at import, as the reference's timer does) |
 | PLONKISH_TPU_SANITY     | 0/1    | the reference's `sanity-check` feature: O(2^k) self-checks in the provers |
 | PLONKISH_TPU_DEVICE_FS  | 1/0    | the sum-check's transcript sponge on the card (piop/fiat_shamir.py) |
+| PLONKISH_TPU_FUSED_ROUNDS | 1/0  | under the device transcript, an Evaluations sum-check's rounds from the handover on as one launch of K7 (kernels/sumcheck.py fused_rounds) |
 
 The JAX package's ``backend()`` (its cpp or jax kernels) has no counterpart:
 every entry point of the port takes a ``device`` argument, the card unless
 the caller asks for the CPU, and that argument chooses where the work runs.
-Its ``fused_rounds()`` (one XLA program a round) is not ported.
 """
 
 from __future__ import annotations
@@ -36,3 +36,14 @@ def device_fs() -> bool:
     PLONKISH_TPU_DEVICE_FS=0 for the per-round host squeeze.  A prove on the
     CPU always takes the host squeeze."""
     return os.environ.get("PLONKISH_TPU_DEVICE_FS", "1") == "1"
+
+
+def fused_rounds() -> bool:
+    """Fused sum-check rounds under the device transcript: an Evaluations
+    sum-check's rounds from the handover (piop/sum_check.py
+    ``FUSED_MAX_PAIRS``) to the last run as one launch of K7, which loops
+    over the rounds on the card (K3's sums, K6's message and K4's fold a
+    round).  Default on; set PLONKISH_TPU_FUSED_ROUNDS=0 for K3 -> K6 -> K4
+    launched each round.  The Coefficients sum-check and the rounds whose
+    rows are sharded over a mesh keep their per-round launches."""
+    return os.environ.get("PLONKISH_TPU_FUSED_ROUNDS", "1") == "1"

@@ -113,50 +113,8 @@ static void window_combine_twin(const uint32_t* pv, int windows, int c, uint32_t
   jac_store(out, V[0]);
 }
 
-// K6: the lanes of the warp one after another between its steps.
-static void keccak_warp_twin(uint64_t a[25]) {
-  uint32_t lfsr = 1;
-  for (int r = 0; r < 24; r++) {
-    uint64_t c[25], t[25], b[25];
-    for (int l = 0; l < 25; l++) c[l] = keccak_parity(l, [&](int j) { return a[j]; });
-    for (int l = 0; l < 25; l++) t[l] = keccak_theta(l, a[l], [&](int j) { return c[j]; });
-    for (int l = 0; l < 25; l++) b[l] = fs_rotl(t[keccak_pi_source(l)], keccak_rho(keccak_pi_source(l)));
-    for (int l = 0; l < 25; l++) a[l] = keccak_chi(l, b[l], [&](int j) { return b[j]; });
-    a[0] ^= keccak_rc(lfsr);
-  }
-}
-
-template <class F>
-static Fe fs_squeeze_twin(const uint32_t* sponge, int lanes, FsShared& sh) {
-  uint64_t a[25];
-  for (int l = 0; l < 25; l++) a[l] = fs_sponge_lane(l, sponge);
-  int base = fs_sponge_base(sponge);
-  bool last = false;
-  while (!last) {
-    for (int l = 0; l < 25; l++) a[l] = fs_absorb_block(l, a[l], sh.words, lanes, base);
-    last = fs_last_block(lanes, base);
-    keccak_warp_twin(a);
-    base += FS_RATE_LANES;
-  }
-  for (int l = 0; l < 4; l++) fs_put_lane(sh.digest, l, a[l]);
-  return fs_challenge<F>(sh.digest);
-}
-
-template <class F>
-static void fs_round_twin(const uint32_t* sums, uint32_t* scal, uint32_t* sponge,
-                          const uint32_t* fixed, const uint32_t* rows, int degree, uint32_t* out,
-                          uint32_t* ch_mont, uint32_t* ids_next) {
-  FsShared sh;
-  Fe m[FS_MAX_DEGREE + 1];
-  for (int t = 0; t <= degree; t++) m[t] = fs_round_prepare<F>(t, sums, scal, fixed, degree, out, sh);
-  Fe ch = fs_squeeze_twin<F>(sponge, 4 * (degree + 1), sh);
-  Fe c = fe_to_mont<F>(ch), next = fe_zero();
-  for (int t = 0; t <= degree; t++) next = fe_add<F>(next, fs_round_term<F>(t, m[t], c, degree, sh));
-  for (int lane = 0; lane < 32; lane++)
-    fs_round_finish<F>(lane, 32, next, ch, c, degree, scal, sponge, rows, out, ch_mont, ids_next,
-                       sh);
-}
-
+// K6: the lanes of the warp one after another between its steps (the
+// Evaluations round's twin, fs_round_twin, is fs_warp.cuh's).
 template <class F>
 static void fs_coeff_twin(const uint32_t* v, uint32_t* scal, uint32_t* sponge,
                           const uint32_t* c0_base, uint32_t* out, uint32_t* ch_mont) {

@@ -3,68 +3,13 @@
 // launch of one warp a round, between K3 (whose sums it reads) and K4 (which
 // reads its challenge), so that a sum-check round enqueues with no host read.
 // field: 0 = Fr, 1 = Fq (kernels/__init__.py: FIELDS); any other value, or a
-// degree outside 1..FS_MAX_DEGREE, is refused.
-#include "fiat_shamir.cuh"
+// degree outside 1..FS_MAX_DEGREE, is refused.  The warp's code is in
+// fs_warp.cuh, which K7 (sumcheck_fused.cuh) shares.
+#include "fs_warp.cuh"
 
 #ifdef __CUDACC__
 
 using namespace pk;
-
-constexpr int FS_THREADS = 32;
-constexpr unsigned FS_FULL = 0xffffffffu;
-
-__device__ __forceinline__ uint64_t fs_shfl(uint64_t v, int src) {
-  uint32_t lo = __shfl_sync(FS_FULL, (uint32_t)v, src);
-  uint32_t hi = __shfl_sync(FS_FULL, (uint32_t)(v >> 32), src);
-  return (uint64_t)lo | ((uint64_t)hi << 32);
-}
-
-// keccak-f[1600] on the warp, lane i holding state lane i.
-__device__ __forceinline__ uint64_t fs_keccak_warp(int lane, uint64_t a) {
-  const int src = keccak_pi_source(lane), rot = keccak_rho(src);
-  uint32_t lfsr = 1;
-#pragma unroll 1
-  for (int r = 0; r < 24; r++) {
-    uint64_t c = keccak_parity(lane, [&](int j) { return fs_shfl(a, j); });
-    a = keccak_theta(lane, a, [&](int j) { return fs_shfl(c, j); });
-    a = fs_rotl(fs_shfl(a, src), rot);
-    a = keccak_chi(lane, a, [&](int j) { return fs_shfl(a, j); });
-    uint64_t rc = keccak_rc(lfsr);
-    if (lane == 0) a ^= rc;
-  }
-  return a;
-}
-
-// Absorb the `lanes` message lanes of sh.words into the sponge, squeeze:
-// the digest into sh.digest; returns the challenge, canonical.
-template <class F>
-__device__ __forceinline__ Fe fs_squeeze_warp(int lane, const uint32_t* sponge, int lanes,
-                                              FsShared& sh) {
-  uint64_t a = fs_sponge_lane(lane, sponge);
-  int base = fs_sponge_base(sponge);
-  bool last = false;
-  while (!last) {
-    a = fs_absorb_block(lane, a, sh.words, lanes, base);
-    last = fs_last_block(lanes, base);
-    a = fs_keccak_warp(lane, a);
-    base += FS_RATE_LANES;
-  }
-  if (lane < 4) fs_put_lane(sh.digest, lane, a);
-  __syncwarp();
-  return fs_challenge<F>(sh.digest);
-}
-
-template <class F>
-__device__ __forceinline__ Fe fs_warp_sum(Fe a) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    Fe b;
-#pragma unroll
-    for (int w = 0; w < 8; w++) b.v[w] = __shfl_xor_sync(FS_FULL, a.v[w], o);
-    a = fe_add<F>(a, b);
-  }
-  return a;
-}
 
 template <class F>
 __global__ void __launch_bounds__(FS_THREADS)
@@ -72,25 +17,8 @@ __global__ void __launch_bounds__(FS_THREADS)
                     const uint32_t* fixed, const uint32_t* rows, int degree, uint32_t* out,
                     uint32_t* ch_mont, uint32_t* ids_next) {
   __shared__ FsShared sh;
-  const int lane = threadIdx.x;
-  Fe m[2];
-#pragma unroll
-  for (int h = 0; h < 2; h++) {
-    int t = lane + FS_THREADS * h;
-    if (t <= degree) m[h] = fs_round_prepare<F>(t, sums, scal, fixed, degree, out, sh);
-  }
-  __syncwarp();
-  Fe ch = fs_squeeze_warp<F>(lane, sponge, 4 * (degree + 1), sh);
-  Fe c = fe_to_mont<F>(ch);
-  Fe acc = fe_zero();
-#pragma unroll
-  for (int h = 0; h < 2; h++) {
-    int t = lane + FS_THREADS * h;
-    if (t <= degree) acc = fe_add<F>(acc, fs_round_term<F>(t, m[h], c, degree, sh));
-  }
-  acc = fs_warp_sum<F>(acc);
-  fs_round_finish<F>(lane, FS_THREADS, acc, ch, c, degree, scal, sponge, rows, out, ch_mont,
-                     ids_next, sh);
+  fs_round_warp<F>(threadIdx.x, sums, scal, sponge, fixed, rows, degree, out, ch_mont, ids_next,
+                   sh);
 }
 
 template <class F>

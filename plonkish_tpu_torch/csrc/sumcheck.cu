@@ -8,20 +8,9 @@
 // Brakedown, and over Fq (Grumpkin's scalar field) with IPA and Hyrax.
 //
 // K3, the round evaluations, is generated for each expression: see
-// sumcheck.cuh and kernels/sumcheck_gen.py.
-#include "field.cuh"
-
-namespace pk {
-
-template <class F>
-PK_HD void fold_element(int64_t e, const uint32_t* state, const Fe& c,
-                        uint32_t* out) {
-  Fe lo = fe_load(state + 2 * e * 8);
-  Fe hi = fe_load(state + (2 * e + 1) * 8);
-  fe_store(out + e * 8, fe_add<F>(lo, fe_mul<F>(fe_sub<F>(hi, lo), c)));
-}
-
-}  // namespace pk
+// sumcheck.cuh and kernels/sumcheck_gen.py; fold_element, K4's body, is in
+// sumcheck.cuh, where K7 (sumcheck_fused.cuh) folds with it too.
+#include "sumcheck.cuh"
 
 #ifdef __CUDACC__
 

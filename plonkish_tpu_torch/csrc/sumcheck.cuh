@@ -54,11 +54,29 @@ __host__ __device__ PK_SC_NOINLINE Fe sc_mul(const Fe a, const Fe b) {
   return fe_mul<F>(a, b);
 }
 
-// lo and hi of one pair: 64 contiguous bytes.
+// lo and hi of one pair: 64 contiguous bytes, read by four coherent loads
+// (ld.global) in an asm statement without memory effects.  Not __ldg: K7
+// (sumcheck_fused.cuh) runs the same Tape over tables that its own blocks
+// wrote in an earlier round of the same launch, which the read-only path
+// may not see.  Not a plain C++ load either: the compiler must keep those in
+// order with the calls of the out-of-line sc_mul, and held the loaded values
+// in registers across them (more registers, fewer warps and a slower K3 on
+// an H100); the asm statement moves as freely as __ldg.  K7's grid barrier
+// orders the rounds' writes before these loads.
+#ifdef __CUDACC__
+__device__ __forceinline__ uint4 sc_load16(const uint4* q) {
+  uint4 v;
+  asm("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(q));
+  return v;
+}
+#endif
+
 PK_HD void sc_load_pair(const uint32_t* p, Fe& lo, Fe& hi) {
 #ifdef __CUDA_ARCH__
   const uint4* q = reinterpret_cast<const uint4*>(p);
-  uint4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2), d = __ldg(q + 3);
+  uint4 a = sc_load16(q), b = sc_load16(q + 1), c = sc_load16(q + 2), d = sc_load16(q + 3);
   lo = Fe{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
   hi = Fe{{c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w}};
 #else
@@ -90,6 +108,15 @@ PK_HD Fe sc_identity(const uint32_t* ids, int64_t i, int tm1) {
 }
 
 PK_HD Fe sc_const(const uint32_t* consts, int j) { return fe_load(consts + 8 * j); }
+
+// K4's element e: new[e] = lo + c (hi - lo) of rows 2e and 2e + 1 of the
+// flat state (every table folds at once, out of place); K7 folds with it too.
+template <class F>
+PK_HD void fold_element(int64_t e, const uint32_t* state, const Fe& c, uint32_t* out) {
+  Fe lo = fe_load(state + 2 * e * 8);
+  Fe hi = fe_load(state + (2 * e + 1) * 8);
+  fe_store(out + e * 8, fe_add<F>(lo, fe_mul<F>(fe_sub<F>(hi, lo), c)));
+}
 
 // The register file of a tape with more registers than a thread can hold
 // (kernels/sumcheck_gen.py REGFILE_ABOVE): the tape's registers live in a

@@ -28,6 +28,7 @@ LAUNCHES = {
     "ipa_fold_affine": 0,
     "fs_round_message": 0,
     "fs_coeff_message": 0,
+    "sumcheck_fused": 0,
 }
 
 

@@ -9,8 +9,8 @@ from building at once.  There is no fallback: a failed build raises.
 
 ``build_cpu_twin`` compiles the same headers with g++ into a small library
 for the CPU tests of the kernels' arithmetic; no entry point uses it.
-K3's kernels are generated for each expression and built by
-``kernels/sumcheck_gen.py`` with the same flags, lock and g++ twin.
+K3's kernels, and K7's beside them, are generated for each expression and
+built by ``kernels/sumcheck_gen.py`` with the same flags, lock and g++ twin.
 """
 
 from __future__ import annotations
@@ -142,6 +142,6 @@ def build_host(src: pathlib.Path, out: pathlib.Path, opt: str = "-O2") -> pathli
 def build_cpu_twin() -> pathlib.Path:
     """g++ build of csrc/cpu_twin.cpp (the headers on the host), for tests."""
     names = ["cpu_twin.cpp", "field.cuh", "curve.cuh", "msm.cuh", "fiat_shamir.cuh",
-             *CUDA_SOURCES]
+             "fs_warp.cuh", "sumcheck.cuh", *CUDA_SOURCES]
     return build_host(CSRC / "cpu_twin.cpp",
                       BUILD / f"libplonkish_cpu_twin_{_digest(names)}.so")

@@ -22,6 +22,15 @@ the operand T selects the identity polynomial, whose value at pair i is
 mul as raw digits of 2^(r+1) * R^2 mod p, base and step Montgomery).
 
 K4 folds every table at once: new[i] = lo + c * (hi - lo).
+
+K7, the fused sum-check rounds (port-only; it stands for the JAX package's
+fused-round programs, plonkish_tpu/piop/sum_check.py:573 and :609), runs
+every round of an Evaluations sum-check from a given one to the last in one
+cooperative launch: K3's sums, K6's round message and K4's fold a round,
+grid-wide barriers between them.  Its source (``csrc/sumcheck_fused.cuh``) is
+instantiated in the tape's generated source beside K3.  ``fused_rounds``
+takes the same buffers as the per-round path (piop/sum_check.py
+``DeviceFsRun``) and its plain version runs that path's plain K3, K6 and K4.
 """
 
 from __future__ import annotations
@@ -33,8 +42,10 @@ import torch
 
 from ..fields import limb
 from ..fields.spec import BN254_FR, FieldSpec
+from ..piop import fiat_shamir as fs
 from ..piop import tape as tape_mod
 from . import LAUNCHES, field_id
+from . import fiat_shamir as kfs
 from . import build
 from . import sumcheck_gen
 
@@ -182,3 +193,97 @@ def fold(spec, stacked, challenge):
     if stacked.device.type == "cpu":
         return fold_plain(spec, stacked, challenge)
     return fold_cuda(spec, stacked, challenge)
+
+
+# ---------------------------------------------------------------------------
+# K7: fused rounds
+# ---------------------------------------------------------------------------
+
+FUSED_FOLD_PER_THREAD = 4  # csrc/sumcheck_fused.cuh SC_FUSED_FOLD_PER_THREAD
+
+
+def fused_rounds_plain(spec, stacked, instrs, consts, num_regs, out_reg, degree, ids, rows,
+                       sponge, scal, fixed, out, ch_mont, first, rounds):
+    """Rounds first .. first + rounds - 1 in one call, through the plain K3,
+    K6 and K4, each round's identity rows read from the stack by its index;
+    the buffers advanced in place as K7 advances them.  Returns the state
+    after the last fold."""
+    for r in range(first, first + rounds):
+        sums = sumcheck_round_plain(spec, stacked, instrs, consts, num_regs, out_reg, degree,
+                                    ids)
+        fs.round_message_plain(spec, degree, sums, scal, sponge, fixed, rows[r: r + 2], out[r],
+                               ch_mont, ids)
+        stacked = fold_plain(spec, stacked, ch_mont)
+    return stacked
+
+
+def fused_launch(kern, stream, spec, stacked, consts, degree, ids, rows, sponge, scal, fixed,
+                 out, ch_mont, first, rounds):
+    """Launch K7 through `kern` (a generated library or its host twin).  The
+    second buffer (half the state) and the scratch are allocated here; the
+    state is one of K7's two buffers, so it is overwritten (the result may
+    be a view of it)."""
+    _check_state(stacked)
+    if degree != kern.degree:
+        raise ValueError(f"the kernel was generated for degree {kern.degree}, not {degree}")
+    t_count, rows_0, _ = stacked.shape
+    total = out.shape[0]
+    if rounds < 1 or first < 0 or first + rounds > total:
+        raise ValueError(f"rounds {first}..{first + rounds - 1} outside the {total} of `out`")
+    if rows_0 % (1 << rounds):
+        raise ValueError(f"{rows_0} rows do not fold {rounds} times")
+    dev = stacked.device
+    consts = consts.to(dev).contiguous()
+    kfs._check(dev, ids=(ids, (3, 8)), rows=(rows, (total + 1, 3, 8)),
+               sponge=(sponge, (kfs.SPONGE_WORDS,)), scal=(scal, (2, 8)),
+               fixed=(fixed, (2 * (degree + 1), 8)), out=(out, (total, degree + 2, 8)),
+               ch_mont=(ch_mont, (8,)))
+    s0 = rows_0 // 2
+    launch = kern.fused
+    # every block resident, and no more than round `first` keeps at work
+    # (csrc/sumcheck_fused.cuh sc_fused_active); partial sums for at most a
+    # set of pairs a warp
+    sums = -(-s0 // sumcheck_gen.WARP) * degree
+    fold = -(-t_count * s0 // (launch.warps * sumcheck_gen.WARP * FUSED_FOLD_PER_THREAD))
+    blocks = max(1, min(launch.resident, max(fold, -(-sums // launch.warps))))
+    other = torch.empty((t_count * s0 * 8,), dtype=torch.int32, device=dev)
+    partial = torch.empty((blocks * launch.warps, degree, 8), dtype=torch.int32, device=dev)
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+    rc = launch.fn(stacked.data_ptr(), other.data_ptr(), t_count, s0, consts.data_ptr(),
+                   ids.data_ptr(), partial.data_ptr(), scal.data_ptr(), sponge.data_ptr(),
+                   fixed.data_ptr(), rows.data_ptr(), out.data_ptr(), ch_mont.data_ptr(),
+                   bar.data_ptr(), first, rounds, blocks, launch.warps, stream)
+    if rc != 0:
+        raise RuntimeError(f"sumcheck_fused launch failed: CUDA error {rc}")
+    LAUNCHES["sumcheck_fused"] += 1
+    final = rows_0 >> rounds
+    buf = other if rounds % 2 else stacked.view(-1)
+    return buf[: t_count * final * 8].view(t_count, final, 8)
+
+
+def fused_rounds_cuda(spec, stacked, instrs, consts, num_regs, out_reg, degree, ids, rows,
+                      sponge, scal, fixed, out, ch_mont, first, rounds):
+    field_id(spec)
+    if stacked.device.type != "cuda":
+        raise ValueError("state must be a CUDA tensor")
+    kern = sumcheck_gen.kernel(instrs, num_regs, out_reg, stacked.shape[0], degree, spec)
+    stream = torch.cuda.current_stream(stacked.device).cuda_stream
+    return fused_launch(kern, stream, spec, stacked, consts, degree, ids, rows, sponge, scal,
+                        fixed, out, ch_mont, first, rounds)
+
+
+def fused_rounds(spec, stacked, instrs, consts, num_regs, out_reg, degree, ids, rows, sponge,
+                 scal, fixed, out, ch_mont, first, rounds):
+    """K7: rounds first .. first + rounds - 1 of an Evaluations sum-check on
+    the state `stacked` ([T, 2s, 8] at round `first`), in place on the
+    per-round path's buffers (piop/fiat_shamir.py ``round_message``): `ids`
+    round `first`'s K3 identity rows [3, 8], `rows` the whole identity stack
+    [k + 1, 3, 8], `sponge`, `scal` and `fixed` K6's, `out` [k, d + 2, 8]
+    each round's message and challenge, `ch_mont` [8].  Returns the state
+    after the last fold, [T, 2s >> rounds, 8]; on the card the input state is
+    consumed as scratch."""
+    if stacked.device.type == "cpu":
+        return fused_rounds_plain(spec, stacked, instrs, consts, num_regs, out_reg, degree,
+                                  ids, rows, sponge, scal, fixed, out, ch_mont, first, rounds)
+    return fused_rounds_cuda(spec, stacked, instrs, consts, num_regs, out_reg, degree, ids, rows,
+                             sponge, scal, fixed, out, ch_mont, first, rounds)

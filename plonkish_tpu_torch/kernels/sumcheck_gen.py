@@ -22,6 +22,12 @@ process; and keeps its ptxas log and build seconds.  ``prebuild`` starts the
 nvcc of several tapes together.  A failed build raises: there is no other
 route.  ``twin`` builds the same source with g++ for the CPU tests, where
 the launch entry point runs the kernel's threads one after another.
+
+The same source holds K7, the fused sum-check rounds
+(``csrc/sumcheck_fused.cuh``), instantiated with the same ``Tape``: one
+nvcc a tape builds both kernels, and the tape's out-of-line parts (``sc_mul``,
+the REGFILE_PARTs) are compiled once for the two.  ``RoundKernel.fused``
+holds K7's entry point and launch shape.
 """
 
 from __future__ import annotations
@@ -54,15 +60,32 @@ WARP = 32
 # array, since nvcc's time grew faster than the length of one function.
 REGFILE_ABOVE = 64
 REGFILE_PART = 128
-HEADERS = ("field.cuh", "sumcheck.cuh")
+HEADERS = ("field.cuh", "sumcheck.cuh", "fiat_shamir.cuh", "fs_warp.cuh", "sumcheck_fused.cuh")
 ROUND_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p]
+# sc_fused(a, b, tables, s0, consts, ids, partial, scal, sponge, fixed, rows, out,
+#          ch_mont, bar, first, rounds, blocks, warps, stream)
+FUSED_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 10
+              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass
+class Launch:
+    """One kernel of a tape's library: its entry point and launch shape."""
+
+    fn: object
+    warps: int  # warps (values of t) per block
+    resident: int  # blocks the card holds at once
+    regs: int  # registers per thread (0 in the host build)
+    stack: int  # local memory bytes per thread (0 in the host build)
+    ptxas: str = ""  # the kernel's ptxas lines ("" in the host build)
 
 
 @dataclasses.dataclass
 class RoundKernel:
-    """One loaded round kernel and what its build reported."""
+    """One loaded tape library and what its build reported: K3's round
+    kernel (the fields below) and K7's fused rounds (``fused``)."""
 
     fn: object  # sc_round(state, s, consts, ids, blocks, warps, partial, out, stream)
     degree: int
@@ -73,6 +96,7 @@ class RoundKernel:
     path: pathlib.Path
     ptxas: str = ""  # the kernel's ptxas lines ("" in the host build)
     build_seconds: float = 0.0  # 0.0 when the library was already built
+    fused: Launch = None  # sc_fused (FUSED_ARGS) and sc_fused_config's shape
 
 
 _KERNELS: Dict[Tuple, RoundKernel] = {}  # by structure()
@@ -129,10 +153,11 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
             else f"Fe {', '.join(f'r{j}' for j in range(num_regs))};")
     return "\n".join([
         "// Generated by plonkish_tpu_torch/kernels/sumcheck_gen.py: the sum-check",
-        f"// round kernel K3 for one expression tape ({len(ops)} instructions, "
+        f"// round kernel K3 and the fused rounds K7 for one expression tape ({len(ops)} "
+        "instructions, "
         f"{ops.count(tape_mod.OP_MUL)} products,",
         f"// {num_regs} registers, {tables} tables, degree {degree}, over {spec.name}).",
-        '#include "sumcheck.cuh"',
+        '#include "sumcheck_fused.cuh"',
         "",
         "namespace pk {",
         "",
@@ -159,6 +184,20 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
         "",
         'extern "C" int sc_config(int* out) { return pk::sc_round_config<pk::Tape>(out); }',
         "",
+        "// K7: rounds first .. first + rounds - 1 in one cooperative launch.",
+        'extern "C" int sc_fused(uint32_t* a, uint32_t* b, long long tables, long long s0,',
+        "                        const uint32_t* consts, uint32_t* ids, uint32_t* partial,",
+        "                        uint32_t* scal, uint32_t* sponge, const uint32_t* fixed,",
+        "                        const uint32_t* rows, uint32_t* out, uint32_t* ch_mont,",
+        "                        uint32_t* bar, int first, int rounds, int blocks, int warps,",
+        "                        void* stream) {",
+        "  pk::ScFused p{a, b, tables, s0, consts, ids, partial, scal, sponge, fixed, rows, out,",
+        "                ch_mont, bar, first, rounds};",
+        "  return pk::sc_fused_run<pk::Tape>(p, blocks, warps, stream);",
+        "}",
+        "",
+        'extern "C" int sc_fused_config(int* out) { return pk::sc_fused_config<pk::Tape>(out); }',
+        "",
     ])
 
 
@@ -178,16 +217,16 @@ def _paths(src: str):
             build.BUILD / f"libsc_round_{tag}.ptxas.txt")
 
 
-def _kernel_ptxas(log: str) -> str:
-    """What ptxas reports for sc_round_kernel and sc_mul: registers, stack
-    frame, spills."""
+def _kernel_ptxas(log: str, kernel: str = "sc_round_kernel") -> str:
+    """What ptxas reports for `kernel` (sc_round_kernel or sc_fused_kernel)
+    and sc_mul: registers, stack frame, spills."""
     out, subject = [], None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?(?: for|$)",
                       line.strip())
         if m:
             name = m.group(1)
-            subject = next((k for k in ("sc_round_kernel", "sc_mul") if k in name), None)
+            subject = next((k for k in (kernel, "sc_mul") if k in name), None)
             continue
         if subject and ("stack frame" in line or "Used" in line):
             out.append(f"{subject}: " + re.sub(r"^ptxas info\s*:\s*", "", line.strip()))
@@ -200,16 +239,23 @@ def _write(path: pathlib.Path, text: str) -> None:
     os.replace(tmp, path)
 
 
-def _open(path: pathlib.Path, degree: int, log: str = "", seconds: float = 0.0) -> RoundKernel:
-    """Load a built library and ask it for its launch shape."""
-    lib = ctypes.CDLL(str(path))
+def _config(lib, name: str, path: pathlib.Path):
     cfg = (ctypes.c_int * 4)()
-    rc = build.bind(lib.sc_config, [ctypes.c_void_p])(ctypes.addressof(cfg))
+    rc = build.bind(getattr(lib, name), [ctypes.c_void_p])(ctypes.addressof(cfg))
     if rc != 0:
-        raise RuntimeError(f"sc_config of {path.name} failed: CUDA error {rc}")
-    return RoundKernel(fn=build.bind(lib.sc_round, ROUND_ARGS), degree=degree, warps=cfg[0],
-                       resident=cfg[1], regs=cfg[2], stack=cfg[3], path=path,
-                       ptxas=_kernel_ptxas(log), build_seconds=seconds)
+        raise RuntimeError(f"{name} of {path.name} failed: CUDA error {rc}")
+    return list(cfg)
+
+
+def _open(path: pathlib.Path, degree: int, log: str = "", seconds: float = 0.0) -> RoundKernel:
+    """Load a built library and ask it for both kernels' launch shapes."""
+    lib = ctypes.CDLL(str(path))
+    warps, resident, regs, stack = _config(lib, "sc_config", path)
+    fused = Launch(build.bind(lib.sc_fused, FUSED_ARGS), *_config(lib, "sc_fused_config", path),
+                   ptxas=_kernel_ptxas(log, "sc_fused_kernel"))
+    return RoundKernel(fn=build.bind(lib.sc_round, ROUND_ARGS), degree=degree, warps=warps,
+                       resident=resident, regs=regs, stack=stack, path=path,
+                       ptxas=_kernel_ptxas(log), build_seconds=seconds, fused=fused)
 
 
 def _nvcc_build(cu: pathlib.Path, lib: pathlib.Path, log: pathlib.Path) -> float:

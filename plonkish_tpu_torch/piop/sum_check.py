@@ -11,8 +11,11 @@ On the card, with ``config.device_fs()`` on (the default), the transcript's
 sponge runs on the device instead (``DeviceFsRun``, piop/fiat_shamir.py): each
 round enqueues K3 -> K6 -> K4 with no host read and no blocking upload, the
 round messages come back in one transfer, and the host transcript is replayed
-from them (reference sum_check.py:1276-1495).  On the CPU the host loop stays
-the default.
+from them (reference sum_check.py:1276-1495).  With ``config.fused_rounds()``
+on as well (the default), an Evaluations sum-check's rounds from
+``FUSED_MAX_PAIRS`` pairs down run as one launch of K7
+(``kernels.sumcheck.fused_rounds``) instead (reference sum_check.py:1359).
+On the CPU the host loop stays the default.
 
 All live tables of a prove are one stacked Montgomery tensor ``int32[T, n, 8]``
 (natural hypercube order, sorted table keys as in the reference's jax path):
@@ -511,6 +514,12 @@ class CoefficientsProver:
 # Device-resident Fiat-Shamir (reference sum_check.py:1276-1580)
 # ---------------------------------------------------------------------------
 
+# The handover H of the fused rounds: K7 takes an Evaluations sum-check's
+# rounds from the first whose pair count is at most this (None: every round);
+# the rounds above keep K3 -> K6 -> K4.  Chosen on the card (PERF.md, K7).
+FUSED_MAX_PAIRS = None
+
+
 def device_fs_eligible(prover) -> bool:
     """The provers with a device-FS path: every EvaluationsProver, and a
     CoefficientsProver with terms (reference sum_check.py:1242-1257)."""
@@ -535,15 +544,17 @@ class DeviceFsRun:
     Evaluations sum-check), or the terms' scalars and each round's c0 base (a
     Coefficients one), and the buffers K6 writes.  ``enqueue`` then launches
     each round's K3 (or the plain-torch (v0, v2) sums), K6 and K4 with no host
-    read and no blocking upload; ``replay`` brings every message and
-    challenge back in one transfer and replays them into the host
-    transcript."""
+    read and no blocking upload, and under ``config.fused_rounds()`` hands an
+    Evaluations sum-check's rounds from the handover on to one launch of K7;
+    ``replay`` brings every message and challenge back in one transfer and
+    replays them into the host transcript."""
 
     def __init__(self, state: ProverState, prover, transcript: Keccak256Transcript):
         assert state.round == 0, "a device-FS run starts from a fresh state"
         spec, dev, k = state.spec, state.device, state.num_vars
         self.state, self.prover = state, prover
         self.coeff = isinstance(prover, CoefficientsProver)
+        self.fused = not self.coeff and config.fused_rounds()
         self.message_cls = Coefficients if self.coeff else Evaluations
         self.width = 3 if self.coeff else state.degree + 1  # message elements
         self.sponge = fs.sponge_words(transcript, dev)
@@ -565,9 +576,20 @@ class DeviceFsRun:
         self.ch_mont = torch.empty((limb.L,), dtype=torch.int32, device=dev)
 
     def enqueue(self) -> None:
-        """Every round, each a K3 (or (v0, v2)) -> K6 -> K4 launch sequence."""
+        """Every round, each a K3 (or (v0, v2)) -> K6 -> K4 launch sequence,
+        or, fused, K7 from the first round at or below the handover whose rows
+        are whole here (not sharded over a mesh) to the last."""
         state, prover, spec = self.state, self.prover, self.state.spec
         for r in range(state.num_vars):
+            if (self.fused and state.mesh is None
+                    and (FUSED_MAX_PAIRS is None or state.size <= FUSED_MAX_PAIRS)):
+                t = prover.tape
+                state.stacked = ksc.fused_rounds(
+                    spec, state.stacked, prover.instrs, prover.consts, t.num_regs, t.out_reg,
+                    state.degree, self.ids, self.rows, self.sponge, self.scal, self.fixed,
+                    self.out, self.ch_mont, r, state.num_vars - r)
+                state.round = state.num_vars
+                return
             if self.coeff:
                 fs.coeff_message(spec, prover.round_sums(state, self.scalars), self.scal,
                                  self.sponge, self.c0_base[r], self.out[r], self.ch_mont)

@@ -8,9 +8,11 @@ message (K3 and the read of its sums), transcript (write and squeeze on the
 host) and fold (K4, synchronised), with K3's and K4's own times by CUDA
 events on the card; then ``into_evals``.  With the device transcript
 (piop/fiat_shamir.py): the uploads before the rounds, the host time to
-enqueue every round (K3 -> K6 -> K4), the wait for the card, and the one
-transfer with the host replay; the two must give the same challenges and
-evaluations.  Each is run twice, a warm-up and the run that is printed.
+enqueue every round (K3 -> K6 -> K4 a round, PLONKISH_TPU_FUSED_ROUNDS=0),
+the wait for the card, and the one transfer with the host replay; then the
+same with the fused rounds (one launch of K7 from the handover on, the
+flag at 1).  The three must give the same challenges and evaluations.  Each
+is run twice, a warm-up and the run that is printed.
 Without ``--device`` it needs the card; on the CPU every kernel runs its
 plain version, so only the split's shape means anything there.
 """
@@ -18,6 +20,8 @@ plain version, so only the split's shape means anything there.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import random
 import time
 
@@ -148,10 +152,29 @@ def host_fs(spec, k, vp, device, log):
     return out, challenges, evals
 
 
-def device_fs(spec, k, vp, device, log, sync_check=False):
-    """The same zero-check with the device transcript; with `sync_check`,
-    every round is enqueued under ``torch.cuda.set_sync_debug_mode("error")``,
+@contextlib.contextmanager
+def _fused_flag(fused: bool):
+    saved = os.environ.get("PLONKISH_TPU_FUSED_ROUNDS")
+    os.environ["PLONKISH_TPU_FUSED_ROUNDS"] = "1" if fused else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PLONKISH_TPU_FUSED_ROUNDS")
+        else:
+            os.environ["PLONKISH_TPU_FUSED_ROUNDS"] = saved
+
+
+def device_fs(spec, k, vp, device, log, sync_check=False, fused=False):
+    """The same zero-check with the device transcript, its rounds launched
+    one by one or, `fused`, as K7 (config.fused_rounds); with `sync_check`,
+    the rounds are enqueued under ``torch.cuda.set_sync_debug_mode("error")``,
     so that a host read or a blocking upload before the one transfer raises."""
+    with _fused_flag(fused):
+        return _device_fs(spec, k, vp, device, log, sync_check, "fused" if fused else "device FS")
+
+
+def _device_fs(spec, k, vp, device, log, sync_check, name):
     clock = _Clock(device)
     tr = Keccak256Transcript(spec)
     t0 = time.perf_counter()
@@ -188,7 +211,7 @@ def device_fs(spec, k, vp, device, log, sync_check=False):
     out["rounds_ms"] = out["enqueue_ms"] + out["drain_ms"] + out["replay_ms"]
     out["total_ms"] = (out["init_ms"] + out["setup_ms"] + out["rounds_ms"]
                        + out["into_evals_ms"])
-    log(f"device FS: state init {out['init_ms']:.1f} ms, uploads {out['setup_ms']:.1f} ms, "
+    log(f"{name}: state init {out['init_ms']:.1f} ms, uploads {out['setup_ms']:.1f} ms, "
         f"enqueue of {k} rounds {out['enqueue_ms']:.1f} ms (device "
         f"{_fmt(out['device_ms'])} from the first launch to the last), wait "
         f"{out['drain_ms']:.1f} ms, one transfer and replay {out['replay_ms']:.1f} ms; rounds "
@@ -198,11 +221,12 @@ def device_fs(spec, k, vp, device, log, sync_check=False):
 
 
 def profile(k: int, device, circuit=None, log=print, sync_check=False, pp=None) -> dict:
-    """Both splits of the vanilla zero-check at k on `device`, on `circuit`
+    """The three splits of the vanilla zero-check at k on `device` (host
+    transcript, device transcript a round at a time, fused), on `circuit`
     ((info, circuit) of models.circuits at k; a random vanilla-PLONK
     circuit when None, and then no `pp`); each run twice, the second kept,
     its device rounds under the sync check when `sync_check`
-    (``device_fs``).  Raises if the two transcripts disagree."""
+    (``device_fs``).  Raises if the three disagree."""
     spec = BN254_FR
     device = resolve_device(device)
     if circuit is None:
@@ -215,11 +239,17 @@ def profile(k: int, device, circuit=None, log=print, sync_check=False, pp=None) 
         log(f"-- run {run}{' (warm-up)' if run == 0 else ''}")
         host, host_ch, host_ev = host_fs(spec, k, vp, device, log)
         dev, dev_ch, dev_ev = device_fs(spec, k, vp, device, log, sync_check and run == 1)
+        fused, fused_ch, fused_ev = device_fs(spec, k, vp, device, log, sync_check and run == 1,
+                                              fused=True)
         if host_ch != dev_ch or host_ev != dev_ev:
             raise ValueError("the device transcript's zero-check differs from the host's")
-        result = {"k": k, "device": str(device), "host_fs": host, "device_fs": dev}
+        if host_ch != fused_ch or host_ev != fused_ev:
+            raise ValueError("the fused rounds' zero-check differs from the host's")
+        result = {"k": k, "device": str(device), "host_fs": host, "device_fs": dev,
+                  "fused": fused}
     log(f"host FS rounds {result['host_fs']['rounds_ms']:.1f} ms, device FS rounds "
-        f"{result['device_fs']['rounds_ms']:.1f} ms: same challenges and evaluations")
+        f"{result['device_fs']['rounds_ms']:.1f} ms, fused rounds "
+        f"{result['fused']['rounds_ms']:.1f} ms: same challenges and evaluations")
     return result
 
 

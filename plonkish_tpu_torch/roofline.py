@@ -18,7 +18,9 @@ share uses the larger of the two and says which (``imad_rate``).
 The counts are the port's algorithms': sorted Pippenger buckets (K1, K2), the
 tape-interpreting round kernel (K3), the fold (K4) and the round message
 (K6, whose Keccak-f logic operations are counted beside its products, and
-whose least time is its shortest dependent chain, ``fs_latency_ms``); the
+whose least time is its shortest dependent chain, ``fs_latency_ms``), the
+fused rounds (K7, ``fused_bound_ms``: K3's or K4's bound and K6's chain a
+round); the
 IPA base fold's is the work of the design it runs (``base_fold_work``, the sum
 of its two kernels' counts), which is not shown to be the least its function
 needs.
@@ -202,6 +204,28 @@ def fs_latency_ms(permutations: int, products: int, product_s: float,
     latency, measured by K5 at one element)."""
     keccak_s = permutations * 24 * KECCAK_ROUND_DEPTH * ALU_LATENCY_CYCLES / clock_hz
     return (keccak_s + products * product_s) * 1e3
+
+
+def fused_bound_ms(tables: int, pairs: int, rounds: int, degree: int, tape_muls: int,
+                   round_latency_ms: float, peaks: Optional[dict] = None):
+    """K7 over `rounds` rounds from `pairs` pairs: each round the larger of
+    K3's and K4's bounds (the round's sums and its fold, which needs their
+    challenge, cannot overlap), plus K6's dependent chain
+    (``fs_latency_ms``, `round_latency_ms` a round).  Returns (ms, "bytes" or
+    "operations"): operations unless the rounds' byte bounds outweigh their
+    operation bounds and the chains."""
+    total, t_ops, t_bytes = 0.0, round_latency_ms * rounds, 0.0
+    for j in range(rounds):
+        s = pairs >> j
+        k3, k3_by, _ = bound_ms(*round_work(tables, s, degree, tape_muls), peaks)
+        k4, k4_by, _ = bound_ms(*fold_work(tables, s), peaks)
+        ms, by = (k3, k3_by) if k3 >= k4 else (k4, k4_by)
+        total += ms + round_latency_ms
+        if by == "bytes":
+            t_bytes += ms
+        else:
+            t_ops += ms
+    return total, "bytes" if t_bytes > t_ops else "operations"
 
 
 def chain_work(n: int, chain: int) -> Tuple[int, int]:

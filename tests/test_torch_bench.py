@@ -94,7 +94,8 @@ def test_profile_zero_check_prints_every_round():
     text = "\n".join(lines)
     for r in range(5):
         assert f"round {r:2d} size 2^{4 - r}:" in text
-    assert "device FS:" in text and "same challenges and evaluations" in text
-    host, dev = result["host_fs"], result["device_fs"]
+    assert "device FS:" in text and "fused:" in text and "same challenges and evaluations" in text
+    host, dev, fused = result["host_fs"], result["device_fs"], result["fused"]
     assert len(host["rounds"]) == 5 and host["k3_ms"] is None  # CUDA events only on a card
     assert dev["rounds_ms"] > 0 and dev["device_ms"] is None
+    assert fused["rounds_ms"] > 0 and fused["device_ms"] is None

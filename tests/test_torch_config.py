@@ -12,6 +12,7 @@ FLAGS = {
     "PLONKISH_TPU_TIMER": "timer_enabled",
     "PLONKISH_TPU_SANITY": "sanity_checks",
     "PLONKISH_TPU_DEVICE_FS": "device_fs",
+    "PLONKISH_TPU_FUSED_ROUNDS": "fused_rounds",
 }
 
 

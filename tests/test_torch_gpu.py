@@ -165,8 +165,9 @@ def test_round_message_kernel_matches_plain(cuda, field):
 
 @pytest.mark.gpu
 def test_device_fs_zero_check_has_no_host_read(cuda):
-    """The device-transcript zero-check at k = 12 enqueues every round under
-    set_sync_debug_mode("error") and gives the host loop's challenges."""
+    """The device-transcript zero-check at k = 12, its rounds launched one by
+    one and fused (K7), enqueues every round under set_sync_debug_mode("error")
+    and gives the host loop's challenges."""
     from plonkish_tpu_torch.fields.spec import BN254_FR as S
     from plonkish_tpu_torch.profile_zero_check import device_fs, host_fs, zero_check_polys
     from plonkish_tpu_torch.models.circuits import rand_vanilla_plonk_circuit
@@ -177,6 +178,52 @@ def test_device_fs_zero_check_has_no_host_read(cuda):
     _, host_ch, host_ev = host_fs(S, k, vp, cuda, lambda line: None)
     _, dev_ch, dev_ev = device_fs(S, k, vp, cuda, lambda line: None, sync_check=True)
     assert dev_ch == host_ch and dev_ev == host_ev
+    _, dev_ch, dev_ev = device_fs(S, k, vp, cuda, lambda line: None, sync_check=True,
+                                  fused=True)
+    assert dev_ch == host_ch and dev_ev == host_ev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_fused_rounds_kernel_matches_plain(cuda, field):
+    """K7 (csrc/sumcheck_fused.cuh) against its plain version: every round of
+    the vanilla zero-check at k = 10, from sponges with 0 and 80 bytes
+    pending, and the rounds from round 4 on."""
+    from plonkish_tpu_torch.fields.host import Fp
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.models import circuits
+    from plonkish_tpu_torch.piop import sum_check as sc
+    from plonkish_tpu_torch.poly.multilinear import MLPoly
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    spec = BN254_FR if field == "fr" else BN254_FQ
+    k, rng = 10, random.Random(4)
+    expr = circuits.vanilla_plonk_expression(spec, k)
+    polys = [MLPoly.from_ints(spec, [rng.randrange(spec.p) for _ in range(1 << k)], cuda)
+             for _ in range(1 + max(q.poly for q in expr.used_query()))]
+    vp = sc.VirtualPolynomial(expr, polys, [Fp(rng.randrange(spec.p), spec) for _ in range(3)],
+                              [[Fp(rng.randrange(spec.p), spec) for _ in range(k)]])
+    order = ("ids", "rows", "sponge", "scal", "fixed", "out", "ch_mont")
+    for pending, first in ((0, 0), (80, 4)):
+        state = sc.ProverState(spec, k, Fp(rng.randrange(spec.p), spec), vp)
+        prover = sc.EvaluationsProver(state)
+        tr = Keccak256Transcript(spec)
+        tr.state.update(bytes(136 + pending))
+        run = sc.DeviceFsRun(state, prover, tr)
+        stacked = state.stacked[:, : state.stacked.shape[1] >> first].contiguous()
+        t = prover.tape
+        outs, launched = [], []
+        for fn in (ksc.fused_rounds_cuda, ksc.fused_rounds_plain):
+            b = {n: getattr(run, n).clone() for n in order}
+            before = LAUNCHES["sumcheck_fused"]
+            final = fn(spec, stacked.clone(), prover.instrs, prover.consts, t.num_regs,
+                       t.out_reg, state.degree, *(b[n] for n in order), first, k - first)
+            launched.append(LAUNCHES["sumcheck_fused"] - before)
+            outs.append([final] + [b[n] for n in order])
+        assert launched == [1, 0]
+        assert all(torch.equal(g, w) for g, w in zip(*outs)), (pending, first)
 
 
 @pytest.mark.gpu
@@ -194,9 +241,12 @@ def test_golden_k3_on_the_card(cuda):
     reset_launches()
     tr = Keccak256Transcript(BN254_FR)
     backend.prove(pp, circuit, tr)
-    prover_kernels = ("msm_bucket_sums", "msm_window_sums", "sumcheck_round", "sumcheck_fold",
-                      "fs_round_message", "fs_coeff_message")
+    # the zero-check is one launch of K7 (the fused rounds), the batch open's
+    # rounds K4 and K6's Coefficients round
+    prover_kernels = ("msm_bucket_sums", "msm_window_sums", "sumcheck_fold", "fs_coeff_message",
+                      "sumcheck_fused")
     assert all(LAUNCHES[name] > 0 for name in prover_kernels), LAUNCHES
+    assert LAUNCHES["sumcheck_fused"] == 1, LAUNCHES
     proof = tr.into_proof()
     assert proof == (GOLDEN / "hyperplonk_kzg_k3.bin").read_bytes()
     backend.verify(vp, circuit.instances(), Keccak256Transcript.from_proof(BN254_FR, proof))

@@ -178,3 +178,19 @@ def test_peaks_hold_no_tpu_figure():
     assert roofline.PEAKS["hbm_bytes_per_s"] == 3.35e12
     assert roofline.imad_assumed_per_s() == 132 * 64 * 1.98e9
     assert roofline.FE_MUL_IMAD == 256
+
+
+def test_fused_bound_sums_each_rounds_larger_bound_and_the_chain():
+    """K7's bound: per round the larger of K3's and K4's bounds, plus K6's
+    chain; by hand over three rounds from 4 pairs with a made-up peak."""
+    peaks = _peaks(measured=0.0, assumed=1000.0)
+    tables, degree, muls, chain = 16, 5, 22, 0.5
+    want = 0.0
+    for s in (4, 2, 1):
+        k3 = max(s * (degree * muls + 1) * 256 / 1000.0, tables * 2 * s * 32 / 100.0) * 1e3
+        k4 = max(tables * s * 256 / 1000.0, tables * s * 96 / 100.0) * 1e3
+        want += max(k3, k4) + chain
+    ms, by = roofline.fused_bound_ms(tables, 4, 3, degree, muls, chain, peaks)
+    assert ms == pytest.approx(want) and by == "operations"
+    # by bytes when the state's traffic outweighs the products and the chains
+    assert roofline.fused_bound_ms(tables, 4, 3, 1, 0, 0.0, _peaks(0.0, 1e9))[1] == "bytes"

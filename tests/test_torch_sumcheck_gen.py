@@ -215,3 +215,66 @@ def test_wide_tapes_keep_their_registers_in_a_local_array():
     assert f"Fe file[{prover.tape.num_regs}];" in src and "sc_regfile(file)" in src
     narrow_state, narrow = _prover("vanilla", 3, 20, _ints(3, 3))
     assert "sc_regfile" not in sumcheck_gen.source(*_tape_args(narrow_state, narrow))
+
+
+def _fused_buffers(state, prover, pending_seed):
+    """A DeviceFsRun's buffers for `state` (its sponge from a transcript
+    with bytes pending) and a copy of them."""
+    from plonkish_tpu_torch.utils.transcript import Keccak256Transcript
+
+    tr = Keccak256Transcript(state.spec)
+    tr.state.update(bytes(random.Random(pending_seed).getrandbits(8) for _ in range(200)))
+    run = sc.DeviceFsRun(state, prover, tr)
+    names = ("ids", "rows", "sponge", "scal", "fixed", "out", "ch_mont")
+    return [{n: getattr(run, n).clone() for n in names} for _ in range(2)]
+
+
+def _single_leaf(num_vars, seed):
+    from plonkish_tpu_torch.utils import expression as ex
+
+    vp = sc.VirtualPolynomial(ex.Polynomial(ex.Query(0, ex.Rotation(0))),
+                              [MLPoly.from_ints(BN254_FR, _ints(1 << num_vars, seed), "cpu")],
+                              [], [])
+    state = sc.ProverState(BN254_FR, num_vars, Fp(7, BN254_FR), vp)
+    return state, sc.EvaluationsProver(state)
+
+
+@pytest.mark.parametrize("name,num_vars", [("vanilla", 6), ("vanilla", 10), ("lookup", 5),
+                                            ("single_leaf", 9)])
+def test_fused_rounds_through_generated_twin(name, num_vars):
+    """K7 of the generated source built with g++ (phase (a) warp by warp on
+    3 resident blocks of 4 warps, then (b), then (c)) against its plain
+    version: every round from the first, and the rounds from round 2 on
+    after two plain ones; the messages, challenges, sponge words, sums,
+    identity rows and final tables equal.  A set of pairs is 32 pairs, so the
+    vanilla tape at k = 10 (512 pairs) keeps two sets of five warps (a t
+    each) live through grid-stride turns, one set of eight in its last
+    rounds; the single leaf at k = 9 keeps a set on every warp."""
+    if name == "single_leaf":
+        state, prover = _single_leaf(num_vars, 70)
+    else:
+        state, prover = _prover(name, num_vars, 80, _ints(3, 500))
+    try:
+        kern = sumcheck_gen.twin(*_tape_args(state, prover))
+    except FileNotFoundError as e:
+        pytest.skip(f"no host C++ compiler: {e}")
+    assert (kern.fused.warps, kern.fused.resident) == (4, 3)
+    t = prover.tape
+    order = ("ids", "rows", "sponge", "scal", "fixed", "out", "ch_mont")
+    for first in (0, 2):
+        twin_bufs, plain_bufs = _fused_buffers(state, prover, 40 + first)
+        stacked = state.stacked
+        if first:
+            stacked = ksc.fused_rounds_plain(BN254_FR, stacked, prover.instrs, prover.consts,
+                                             t.num_regs, t.out_reg, state.degree,
+                                             *(plain_bufs[n] for n in order), 0, first)
+            twin_bufs = {n: v.clone() for n, v in plain_bufs.items()}
+        rounds = num_vars - first
+        got = ksc.fused_launch(kern, None, BN254_FR, stacked.clone(), prover.consts,
+                               state.degree, *(twin_bufs[n] for n in order), first, rounds)
+        want = ksc.fused_rounds_plain(BN254_FR, stacked.clone(), prover.instrs, prover.consts,
+                                      t.num_regs, t.out_reg, state.degree,
+                                      *(plain_bufs[n] for n in order), first, rounds)
+        assert got.shape == (stacked.shape[0], 1, 8) and torch.equal(got, want), first
+        for n in order:
+            assert torch.equal(twin_bufs[n], plain_bufs[n]), (first, n)

@@ -18,8 +18,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    lookups and Protostar's vanilla decider, the IPA path's), with each one's
    ptxas line and build seconds beside those before K7 joined the tape's
    source; each tape's library also holds K7, the fused sum-check rounds
-   (csrc/sumcheck_fused.cuh), whose ptxas line is printed too; the vanilla
-   and lookup tapes' K3 and K7 must have a 0-byte stack frame and no spills;
+   (csrc/sumcheck_fused.cuh: its grid rounds and its cluster tail), whose
+   launch shapes, registers and ptxas lines are printed too; the vanilla
+   and lookup tapes' K3 and K7's two kernels must have a 0-byte stack frame
+   and no spills;
    print the card.  The sha256 tape takes about four minutes to build: it
    builds in a thread of its own through phases 2-9, and is printed and
    held against its plain version (as phase 2 holds the others, K3 and
@@ -41,16 +43,19 @@ Phases, each printed on its own line; any failure exits non-zero:
    random, lambda, -lambda} and on a chunk of the batch inversion whose sums
    are all the identity, and for four xi with GLV halves of each pair of
    signs on 35 points against the host's arithmetic,
-   the mont_mul chain probe K5 with both multipliers at 2^16 elements; K6
+   the mont_mul chain probe K5 with its three multipliers at 2^16 elements,
+   and the PTX product (csrc/field_ptx.cuh, the tape's products in K3 and
+   K7) against fe_mul over Fr and Fq on 2^20 random pairs, the edge pairs
+   and pairs that need the final subtraction; K6
    over Fr and Fq at degrees 1, 2, 3, 5, 9 and 32 from sponges with 0, 32,
    80, 120 and 128 bytes pending (0 and 128 at degree 32), and ten chained
    rounds with the Coefficients round beside each); K7 over every round of
-   a sum-check of every phase-1 tape over Fr and Fq at k = 12 and of vanilla
-   at k = 17, from sponges with 0, 32, 80 and 120 bytes pending: messages,
-   challenges, sponge words and final tables exactly (the k = 12 checks in
-   processes of their own, beside phase 2 and, for the sha256 tape, split
-   into runs of rounds beside phase 3, each waited for before the next
-   phase);
+   a sum-check of every phase-1 tape over Fr and Fq at k = 13 (one table's
+   at k = 17, sha256's at k = 12) and of vanilla at k = 17, from sponges
+   with 0, 32, 80 and 120 bytes pending: messages, challenges, sponge words
+   and final tables exactly, each case through the grid rounds, the
+   cluster's tail rounds and block 0's last rounds (a case that does not
+   launch both kernels fails);
 3. the nine frozen HyperPlonk proofs of tests/golden (KZG k3, k5 and lookup
    k5; Gemini, Zeromorph, IPA and Hyrax k5; Brakedown k3 and k5) and the
    Protostar decider proof (KZG, k3, after two folds) produced on the card,
@@ -185,8 +190,12 @@ FS_KERNELS = ("fs_round_message", "fs_coeff_message")
 # by one (PLONKISH_TPU_FUSED_ROUNDS=0, the rounds above the handover, the
 # rounds sharded over a mesh)
 ROUND_KERNELS = ("sumcheck_round", "fs_round_message")
-# K7, the fused rounds: one launch for each Evaluations sum-check of a prove
+# K7, the fused rounds: for each Evaluations sum-check of a prove one launch of
+# its grid rounds (where the first round's pairs exceed the handover) and one
+# of its tail
 FUSED_KERNEL = "sumcheck_fused"
+TAIL_KERNEL = "sumcheck_fused_tail"
+FUSED_KERNELS = (FUSED_KERNEL, TAIL_KERNEL)
 # the build seconds of each tape's library before K7 joined K3 in it (the
 # parent tree's phase 1 on an NVIDIA H100 80GB HBM3 at 700 W), keyed as
 # k3_cases
@@ -205,11 +214,18 @@ FUSED_ORDER = ("ids", "rows", "sponge", "scal", "fixed", "out", "ch_mont")
 # version takes a second a case); 128 pending bytes fill the rate with the
 # first lane
 FS_DEGREES = (1, 2, 3, 5, 9, 32)
-K_FUSED_CHECK = 12  # phase 2's K7 checks: every tape's sum-check at this k
+# phase 2's K7 checks, each through both K7 kernels: every tape's sum-check at
+# K_FUSED_CHECK, whose first round exceeds the handover of 16-24 tables (2,048
+# pairs), or at 17 where it does not (one table: 32,768 pairs); the sha256
+# tapes' (a handover of 64 pairs) at K_FUSED_CHECK_SHA256, where their plain
+# rounds already take a minute
+K_FUSED_CHECK = 13
+K_FUSED_CHECK_SHA256 = 12
+K7_VANILLA_REGS = 156  # K3's registers on the vanilla tape: K7's grid kernel's aim
 FS_PENDING = (0, 32, 80, 120, 128)
 FS_WIDEST_PENDING = (0, 128)
 # a default prove: K1, K2, K4 and K6's Coefficients round (the batch open), K7
-PROVER_KERNELS = MSM_KERNELS + ("sumcheck_fold", "fs_coeff_message", FUSED_KERNEL)
+PROVER_KERNELS = MSM_KERNELS + ("sumcheck_fold", "fs_coeff_message") + FUSED_KERNELS
 # a prove with PLONKISH_TPU_FUSED_ROUNDS=0, or on a mesh
 PER_ROUND_KERNELS = MSM_KERNELS + ("sumcheck_round", "sumcheck_fold") + FS_KERNELS
 # the decider tapes of phase 8, the harness's sangria and the IPA path:
@@ -726,15 +742,18 @@ def late_round_kernels(torch, late, structures):
     log_round_builds(cases, result["kernels"])
     gen = torch.Generator().manual_seed(4)
     check_round_kernels(torch, k3_bench_cases(torch, 17, gen, LATE_TAPES), structures)
-    check_fused_kernels(torch, k3_bench_cases(torch, K_FUSED_CHECK, gen, LATE_TAPES),
+    check_fused_kernels(torch, k3_bench_cases(torch, K_FUSED_CHECK_SHA256, gen, LATE_TAPES),
                         random.Random(15))
 
 
 def log_round_builds(cases, kernels):
     """Each tape library's lines: K3's and K7's (both built from the tape's one
     source) with the library's build seconds beside those before K7 joined
-    it; the vanilla and lookup tapes' two kernels must keep every register in
-    a register."""
+    it; K7's two kernels (the grid rounds and the cluster tail) with their
+    launch shapes and registers.  The vanilla and lookup tapes' three kernels
+    must keep every register in a register; K7's vanilla grid kernel is
+    meant to need at most K7_VANILLA_REGS registers (a line says where it
+    does not)."""
     from plonkish_tpu_torch.piop.tape import OP_MUL
 
     for (field, name), kern in zip(cases, kernels):
@@ -745,14 +764,24 @@ def log_round_builds(cases, kernels):
             f"{tables} tables, degree {degree}: built in {kern.build_seconds:.1f}s "
             f"({'not built before' if before is None else f'{before:.1f}s without K7'}); "
             f"{kern.warps} warps a block, {kern.resident} blocks resident; {kern.ptxas}")
-        fused = kern.fused
-        log(f"[build] K7 {name} over {field}: {fused.warps} warps a block, {fused.resident} "
-            f"blocks resident, {fused.regs} registers, {fused.stack} bytes of local memory; "
-            f"{fused.ptxas}")
+        fused, tail = kern.fused, kern.tail
+        grid = "sc_fused_kernel_capped" if fused.capped else "sc_fused_kernel"  # the build taken
+        build = (f"the build capped at {fused.max_threads} threads" if fused.capped
+                 else "the uncapped build")
+        log(f"[build] K7 {name} over {field}: grid rounds {fused.warps} warps a block, "
+            f"{fused.resident} blocks resident, {fused.regs} registers, {fused.stack} bytes of "
+            f"local memory ({build}); tail {tail.warps} warps a block, a cluster of "
+            f"{tail.cluster}, {tail.smem} bytes of shared memory a block, {tail.regs} "
+            f"registers, {tail.stack} bytes of local memory; {fused.ptxas}; {tail.ptxas}")
+        if name == "vanilla" and fused.regs > K7_VANILLA_REGS:
+            log(f"[build] K7 vanilla over {field}: {fused.regs} registers, above "
+                f"{K7_VANILLA_REGS}: the grid kernel keeps {fused.warps} warps a block "
+                f"({fused.resident} blocks)")
         for kernel, ptxas, stack in (("sc_round_kernel", kern.ptxas, kern.stack),
-                                     ("sc_fused_kernel", fused.ptxas, fused.stack)):
-            frame = re.search(kernel + r": (\d+) bytes stack frame, (\d+) bytes spill stores, "
-                              r"(\d+) bytes spill loads", ptxas)
+                                     (grid, fused.ptxas, fused.stack),
+                                     ("sc_tail_kernel", tail.ptxas, tail.stack)):
+            frame = re.search(re.escape(kernel) + r": (\d+) bytes stack frame, (\d+) bytes "
+                              r"spill stores, (\d+) bytes spill loads", ptxas)
             if (name in ("vanilla", "lookup")
                     and (frame is None or frame.groups() != ("0", "0", "0") or stack)):
                 fail(f"{kernel} {name} over {field}: ptxas reports a stack frame or spills: "
@@ -816,17 +845,36 @@ def fused_outputs(torch, case, bufs, plain, first=0, rounds=None):
     return b
 
 
+def crosses_handover(case):
+    """Whether K7 on a k3_cases case runs both its kernels: a first round
+    above the handover (kernels/sumcheck.py tail_plan), then the tail."""
+    from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.kernels import sumcheck_gen
+
+    stacked, degree = case[0], case[5]
+    plan = ksc.tail_plan(sumcheck_gen.kernel(*tape_of(case)).tail, stacked.shape[0], degree)
+    return plan is not None and stacked.shape[1] // 2 > plan[2]
+
+
 def check_fused_kernels(torch, cases, rng):
     """K7 against its plain version for each case of k3_cases, every round of
     its sum-check (k the case's), from sponges with 0, 32, 80 and 120 bytes
     pending in turn: the messages and challenges, the sponge's words, the
-    sum and offset, the identity rows and the final tables, exactly."""
+    sum and offset, the identity rows and the final tables, exactly.  Each
+    case must launch both K7 kernels, the grid rounds and the tail, once."""
+    from plonkish_tpu_torch.kernels import LAUNCHES
+
     t0 = time.time()
     for i, ((field, name), case) in enumerate(cases.items()):
         stacked, degree, spec = case[0], case[5], case[6]
         k = stacked.shape[1].bit_length() - 1
         bufs = fused_buffers(torch, spec, degree, k, FS_PENDING[i % 4], rng, stacked.device)
+        before = {n: LAUNCHES[n] for n in FUSED_KERNELS}
         got = fused_outputs(torch, case, bufs, plain=False)
+        launched = [LAUNCHES[n] - before[n] for n in FUSED_KERNELS]
+        if launched != [1, 1]:
+            fail(f"K7 on the {name} expression over {field} at k={k} launched "
+                 f"{dict(zip(FUSED_KERNELS, launched))}: the check must run both kernels once")
         want = fused_outputs(torch, case, bufs, plain=True)
         for key in got:
             if not torch.equal(got[key], want[key]):
@@ -834,7 +882,8 @@ def check_fused_kernels(torch, cases, rng):
                      f"{field}, k={k}): {key}")
     log(f"[kernels] K7 fused rounds against the plain K3 -> K6 -> K4, every round of "
         f"{len(cases)} sum-checks ({', '.join(f'{n} over {f}' for f, n in cases)}) at k="
-        f"{sorted({c[0].shape[1].bit_length() - 1 for c in cases.values()})}: messages, "
+        f"{sorted({c[0].shape[1].bit_length() - 1 for c in cases.values()})}, each through "
+        f"the grid rounds and the tail: messages, "
         f"challenges, sponge words, sums, identity rows and final tables equal "
         f"({time.time() - t0:.1f}s)")
 
@@ -890,11 +939,14 @@ def phase2_kernels(torch, structures):
     early = [n for n in BENCH_TAPES if n not in LATE_TAPES]
     cases, (state, _) = k3_cases(torch, 17, gen, bench=early)
     check_round_kernels(torch, cases, structures)
-    # K7 over every round: each tape over Fr and Fq at k = K_FUSED_CHECK, vanilla at k = 17
+    # K7 over every round, through both its kernels: each tape over Fr and Fq
+    # at k = K_FUSED_CHECK, or at k = 17 where its first round there does not
+    # exceed the handover; vanilla at k = 17 too
     fr = BN254_FR.name
     check_fused_kernels(torch, {(fr, "vanilla"): cases[(fr, "vanilla")]}, random.Random(14))
-    check_fused_kernels(torch, k3_cases(torch, K_FUSED_CHECK, gen, bench=early)[0],
-                        random.Random(16))
+    small = k3_cases(torch, K_FUSED_CHECK, gen, bench=early)[0]
+    check_fused_kernels(torch, {key: case if crosses_handover(case) else cases[key]
+                                for key, case in small.items()}, random.Random(16))
     for spec, stacked in ((BN254_FR, state.stacked),
                           (BN254_FQ, cases[(BN254_FQ.name, "vanilla")][0])):
         ch = limb.const(spec, 0x1234567890ABCDEF, "cuda")
@@ -960,7 +1012,65 @@ def phase2_kernels(torch, structures):
         if not torch.equal(got[v], want):
             fail(f"K5 mont_mul_chain variant {v} differs from its plain version")
     log(f"[kernels] K5 mont_mul chain, {a.shape[0]} elements with edge rows, 16 deep, "
-        "u32 and f32: 0 mismatches")
+        f"{', '.join(kprobe.VARIANTS)}: 0 mismatches")
+    check_ptx_product(torch, gen)
+
+
+def final_subtraction_pairs(spec, count, rng):
+    """`count` pairs (a, b) below p whose Montgomery product's sum
+    (a b + m p) / R, before the last conditional subtraction, is p or more."""
+    r = 1 << 256
+    neg_inv = (-pow(spec.p, -1, r)) % r
+    pairs = []
+    while len(pairs) < count:
+        a, b = rng.randrange(spec.p), rng.randrange(spec.p)
+        if (a * b + (a * b * neg_inv % r) * spec.p) // r >= spec.p:
+            pairs.append((a, b))
+    return pairs
+
+
+def check_ptx_product(torch, gen):
+    """The product in PTX carry chains (csrc/field_ptx.cuh, K3's and K7's
+    tape products on the card) against fe_mul, both through K5 one deep, and
+    the PTX sum, difference and negation against field.cuh's
+    (probe.field_ops_cuda), in Fr and Fq: 2^20 random pairs, every pair of 0,
+    1, p - 1 and R mod p, and 64 pairs whose product needs the final
+    subtraction; the edge rows also against the host's integers."""
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from plonkish_tpu_torch.kernels import probe as kprobe
+
+    t0 = time.time()
+    rng = random.Random(19)
+    for spec in (BN254_FR, BN254_FQ):
+        n = 1 << 20
+        a, b = rand_field(torch, spec, n, gen), rand_field(torch, spec, n, gen)
+        edge = [0, 1, spec.p - 1, (1 << 256) % spec.p]
+        pairs = [(x, y) for x in edge for y in edge] + final_subtraction_pairs(spec, 64, rng)
+        a[: len(pairs)] = limb.from_ints([x for x, _ in pairs], "cuda")
+        b[: len(pairs)] = limb.from_ints([y for _, y in pairs], "cuda")
+        a, b = a.contiguous(), b.contiguous()
+        got = kprobe.mont_mul_chain_cuda(spec, a, b, 1, "ptx")
+        want = kprobe.mont_mul_chain_cuda(spec, a, b, 1, "u32")
+        if not torch.equal(got, want):
+            bad = int((got != want).any(dim=1).sum())
+            fail(f"the PTX product differs from fe_mul over {spec.name} on {bad} of {n} pairs")
+        r_inv = pow(1 << 256, -1, spec.p)
+        host = [x * y * r_inv % spec.p for x, y in pairs]
+        if limb.to_ints(got[: len(pairs)].cpu()) != host:
+            fail(f"the PTX product differs from the host's integers over {spec.name}")
+        ops = kprobe.field_ops_cuda(spec, a, b)
+        for j, what in ((0, "sum"), (2, "difference"), (4, "negation")):
+            if not torch.equal(ops[:, j], ops[:, j + 1]):
+                fail(f"the PTX {what} differs from field.cuh's over {spec.name}")
+        sums = limb.to_ints(ops[: len(edge) ** 2, 0].cpu())
+        diffs = limb.to_ints(ops[: len(edge) ** 2, 2].cpu())
+        if (sums != [(x + y) % spec.p for x, y in pairs[: len(edge) ** 2]]
+                or diffs != [(x - y) % spec.p for x, y in pairs[: len(edge) ** 2]]):
+            fail(f"the PTX sum or difference differs from the host's integers over {spec.name}")
+    log(f"[kernels] PTX product, sum and difference (field_ptx.cuh) against fe_mul, fe_add, "
+        f"fe_sub and fe_neg over Fr and Fq: 2^20 pairs each, 16 edge pairs and 64 needing the "
+        f"product's final subtraction among them: 0 mismatches ({time.time() - t0:.1f}s)")
 
 
 def start_native_build():
@@ -1211,7 +1321,7 @@ def phase4_full(torch, k, launches, reset_launches):
     times["prove_host_fs"], host_path = prove_again(
         torch, k, backend, pp, circuit, proof, launches, reset_launches,
         "PLONKISH_TPU_DEVICE_FS", "the host transcript")
-    if any(host_path[name] for name in FS_KERNELS + (FUSED_KERNEL,)):
+    if any(host_path[name] for name in FS_KERNELS + FUSED_KERNELS):
         fail(f"[k={k}] PLONKISH_TPU_DEVICE_FS=0 launched K6 or K7: {json.dumps(host_path)}")
     log(f"[k={k}] times {json.dumps({n: round(v, 4) for n, v in times.items()})}")
     return ({"kzg": main_path, "kzg_per_round": per_round_path},
@@ -1250,15 +1360,17 @@ def prove_again(torch, k, backend, pp, circuit, proof, launches, reset_launches,
 
 
 def check_fused_launches(tag, path, sum_checks):
-    """A default prove's launches: K7 once for each of its `sum_checks`
-    Evaluations sum-checks, and, with the handover at every round
+    """A default prove's launches: K7's grid rounds and its tail once each for
+    each of its `sum_checks` Evaluations sum-checks (every one here starts
+    above the tail's handover), and, with K7 from the first round
     (piop/sum_check.py FUSED_MAX_PAIRS None), no K3 and no K6 Evaluations
     round."""
     from plonkish_tpu_torch.piop import sum_check as sc
 
-    if path[FUSED_KERNEL] != sum_checks:
-        fail(f"[{tag}] K7 launched {path[FUSED_KERNEL]} times, not once for each of the "
-             f"{sum_checks} Evaluations sum-checks")
+    for name in FUSED_KERNELS:
+        if path[name] != sum_checks:
+            fail(f"[{tag}] K7's {name} launched {path[name]} times, not once for each of the "
+                 f"{sum_checks} Evaluations sum-checks")
     if sc.FUSED_MAX_PAIRS is None and any(path[name] for name in ROUND_KERNELS):
         fail(f"[{tag}] K3 or K6's Evaluations round launched though K7 takes every round: "
              f"{json.dumps(path)}")
@@ -1274,7 +1386,7 @@ def check_per_round_launches(tag, path, rounds):
     for name in PER_ROUND_KERNELS:
         if path[name] <= 0:
             fail(f"[{tag}] kernel {name} was not launched")
-    if path[FUSED_KERNEL]:
+    if any(path[name] for name in FUSED_KERNELS):
         fail(f"[{tag}] K7 was launched where the rounds run one by one")
 
 
@@ -1382,9 +1494,15 @@ def phase5_timing(torch, shapes, paths):
     one_ms = {c: graph_ms(torch, lambda: kprobe.mont_mul_chain_cuda(
         BN254_FR, one_a, one_b, c, "u32", 1, 32)) for c in (0, pchain)}
     product_s = (one_ms[pchain] - one_ms[0]) / pchain * 1e-3
+    one_ptx = {c: graph_ms(torch, lambda: kprobe.mont_mul_chain_cuda(
+        BN254_FR, one_a, one_b, c, "ptx", 1, 32)) for c in (0, pchain)}
+    product_ptx_s = (one_ptx[pchain] - one_ptx[0]) / pchain * 1e-3
     log(f"[timing] K5 at one element: {pchain} deep {one_ms[pchain] * 1e3:.3f} us, no product "
         f"{one_ms[0] * 1e3:.3f} us (the launch floor): one product's latency "
-        f"{product_s * 1e9:.1f} ns")
+        f"{product_s * 1e9:.1f} ns (fe_mul), {product_ptx_s * 1e9:.1f} ns (the PTX product, "
+        f"{pchain} deep {one_ptx[pchain] * 1e3:.3f} us); the PTX product "
+        f"{peaks['fe_mul_ptx_per_s'] / 1e9:.3f} G/s against fe_mul's "
+        f"{peaks['fe_mul_per_s'] / 1e9:.3f} G/s")
     rate, source = roofline.imad_rate(peaks)
     log(f"[peaks] {peaks['card']}: fe_mul {peaks['fe_mul_per_s'] / 1e9:.3f} G/s "
         f"({best['per_thread']} per thread, blocks of {best['threads']}), fe_mul_f32 "
@@ -1429,7 +1547,8 @@ def phase5_timing(torch, shapes, paths):
     new_rows = timing_new_instantiations(torch, k, gen, peaks)
     fs_rows = timing_round_message(torch, state.degree, peaks, paths, product_s,
                                    one_ms[0])
-    fused_rows = timing_fused(torch, state, prover, peaks, paths, product_s)
+    # K7's least time reads a product's latency at the faster product's
+    fused_rows = timing_fused(torch, state, prover, peaks, paths, min(product_s, product_ptx_s))
 
     rows_out = []
     # each row's launches are read on the path that runs its kernel: the
@@ -1566,10 +1685,14 @@ def timing_fused(torch, state, prover, peaks, paths, product_s):
     round's own time on each path, without the host's work before the first
     launch, which decides the handover (K7's round 0 no slower than 1.05
     times K3 + K6 + K4's: every round; else the largest pair count at which
-    it is no slower; else 2^12); the rounds from 2^12 pairs, the tail.  Its
-    plain version once, equal in every buffer.  A row of the kernels line."""
+    it is no slower; else 2^12); the 13 rounds from 2^12 pairs.  Then K7's
+    two kernels apart, each timed and held against its plain version once
+    (the tail from the plain grid rounds' state), and all its rounds against
+    the two plain parts run one after the other: the grid rounds' and the
+    tail's rows of the kernels line, each with its bound."""
     from plonkish_tpu_torch import roofline
     from plonkish_tpu_torch.kernels import sumcheck as ksc
+    from plonkish_tpu_torch.kernels import sumcheck_gen
     from plonkish_tpu_torch.piop import fiat_shamir as fs
     from plonkish_tpu_torch.piop import sum_check as sc
     from plonkish_tpu_torch.piop.tape import OP_MUL
@@ -1581,9 +1704,9 @@ def timing_fused(torch, state, prover, peaks, paths, product_s):
     bufs = fused_buffers(torch, spec, degree, k, 32, random.Random(17))
     tape_args = (prover.instrs, prover.consts, tape.num_regs, tape.out_reg, degree)
 
-    def fused(stacked, first, b):
+    def fused(stacked, first, b, rounds=None):
         ksc.fused_rounds_cuda(spec, stacked, *tape_args, *(b[n] for n in FUSED_ORDER), first,
-                              k - first)
+                              rounds or k - first)
 
     def per_round(stacked, first, b):
         for r in range(first, k):
@@ -1630,7 +1753,7 @@ def timing_fused(torch, state, prover, peaks, paths, product_s):
         handover = max(fits) if fits else 1 << 12
         rule = (f"K7's round 0 takes {ratio0:.3f} of K3 + K6 + K4's: the handover at "
                 f"{handover} pairs")
-    log(f"[timing] K7 sumcheck_fused, the k={k} zero-check's {k} rounds in one launch: "
+    log(f"[timing] K7, the k={k} zero-check's {k} rounds in its two launches: "
         f"{fused_ms:.3f} ms; launched one by one (K3 -> K6 -> K4) {per_round_ms:.3f} ms")
     log(f"[timing] K7 each round's own time against K3 + K6 + K4's (the runs from it less "
         f"the runs from the next), ms: {[(round(f, 4), round(p, 4)) for f, p in own]}; "
@@ -1641,25 +1764,63 @@ def timing_fused(torch, state, prover, peaks, paths, product_s):
     log(f"[timing] K7 handover: {rule}; piop/sum_check.py FUSED_MAX_PAIRS holds {committed}"
         f"{'' if committed == measured else ' (this run measured another: see PERF.md)'}")
 
+    # the grid rounds and the tail apart: each against its plain version (the
+    # tail from the plain grid rounds' state and buffers), both together too
+    kern = sumcheck_gen.kernel(*tape_of((base, *tape_args, spec)))
+    plan = ksc.tail_plan(kern.tail, t_count, degree)
+    g = sum(1 for j in range(k) if pairs >> j > plan[2])
     case = (base, *tape_args, spec)
+    grid_plain_ms, want_grid = timed_once(
+        torch, lambda: fused_outputs(torch, case, bufs, plain=True, rounds=g))
+    got = fused_outputs(torch, case, bufs, plain=False, rounds=g)
+    if not all(torch.equal(got[key], want_grid[key]) for key in got):
+        fail(f"K7's grid rounds differ from their plain version at the k={k} zero-check")
+    tail_case = (want_grid["state"], *tape_args, spec)
+    tail_bufs = {n: want_grid[n] for n in FUSED_ORDER}
+    tail_plain_ms, want = timed_once(torch, lambda: fused_outputs(
+        torch, tail_case, tail_bufs, plain=True, first=g, rounds=k - g))
+    got = fused_outputs(torch, tail_case, tail_bufs, plain=False, first=g, rounds=k - g)
+    if not all(torch.equal(got[key], want[key]) for key in got):
+        fail(f"K7's tail differs from its plain version at the k={k} zero-check")
     got = fused_outputs(torch, case, bufs, plain=False)
-    plain_ms, want = timed_once(torch, lambda: fused_outputs(torch, case, bufs, plain=True))
     if not all(torch.equal(got[key], want[key]) for key in got):
         fail(f"K7 differs from its plain version at the k={k} zero-check")
-    del got, want
+    del got, want, want_grid
+    grid_ms = events_ms(lambda st, first, b: fused(st, first, b, g), base, 0)
+    tail_ms = suffix[g][0]
     latency = roofline.fs_latency_ms(roofline.fs_permutations(32, degree + 1),
                                      roofline.fs_round_latency_products(degree), product_s)
     b_ms, b_by = roofline.fused_bound_ms(t_count, pairs, k, degree, n_mul, latency, peaks)
-    log(f"[timing] K7 sumcheck_fused: {fused_ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
-        f"{b_ms:.3f} ms by {b_by}: each round's larger of K3's and K4's bounds and K6's chain "
-        f"of {latency * 1e3:.3f} us; {100 * b_ms / fused_ms:.1f} % of it), "
-        f"{paths['kzg'][FUSED_KERNEL]} launches in the kzg prove")
+    grid_b, grid_by = roofline.fused_bound_ms(t_count, pairs, g, degree, n_mul, latency, peaks)
+    tail_b, tail_by = roofline.fused_bound_ms(t_count, pairs >> g, k - g, degree, n_mul, latency,
+                                              peaks)
+    log(f"[timing] K7 sumcheck_fused, all {k} rounds (grid rounds and tail): {fused_ms:.3f} ms "
+        f"against {per_round_ms:.3f} ms launched one by one; bound {b_ms:.3f} ms by {b_by} "
+        f"({100 * b_ms / fused_ms:.1f} % of it; each round's larger of K3's and K4's bounds and "
+        f"K6's chain of {latency * 1e3:.3f} us at a product's {product_s * 1e9:.1f} ns); grid "
+        f"kernel {kern.fused.regs} registers, {kern.fused.warps} warps a block, "
+        f"{kern.fused.resident} blocks; tail {kern.tail.regs} registers, {kern.tail.warps} warps "
+        f"a block, a cluster of {plan[0]} holding {plan[1]} pairs a block, handover {plan[2]} "
+        f"pairs")
+    log(f"[timing] K7 grid rounds 0..{g - 1}: {grid_ms:.3f} ms (plain {grid_plain_ms:.1f} ms, "
+        f"bound {grid_b:.3f} ms by {grid_by}, {100 * grid_b / grid_ms:.1f} %); tail rounds "
+        f"{g}..{k - 1}: {tail_ms:.3f} ms, {1e3 * tail_ms / (k - g):.1f} us a round (plain "
+        f"{tail_plain_ms:.1f} ms, bound {tail_b:.3f} ms by {tail_by}, "
+        f"{100 * tail_b / tail_ms:.1f} %), against {suffix[g][1]:.3f} ms launched one by one; "
+        f"{paths['kzg'][FUSED_KERNEL]} and {paths['kzg'][TAIL_KERNEL]} launches in the kzg "
+        "prove")
+    source = "plonkish_tpu_torch/csrc/sumcheck_fused.cuh"
+    replaces = "plonkish_tpu/piop/sum_check.py:573"
     return [{
-        "name": FUSED_KERNEL, "route": "cuda",
-        "source": "plonkish_tpu_torch/csrc/sumcheck_fused.cuh",
-        "replaces": "plonkish_tpu/piop/sum_check.py:573", "launches": 0, "max_abs_err": 0,
-        "ms": fused_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "path": "kzg", "counter": FUSED_KERNEL,
+        "name": FUSED_KERNEL, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "max_abs_err": 0, "ms": grid_ms, "plain_ms": grid_plain_ms,
+        "bound_ms": grid_b, "bound_by": grid_by, "library_ms": None, "path": "kzg",
+        "counter": FUSED_KERNEL,
+    }, {
+        "name": TAIL_KERNEL, "route": "cuda", "source": source,
+        "replaces": "plonkish_tpu/piop/sum_check.py:609", "launches": 0, "max_abs_err": 0,
+        "ms": tail_ms, "plain_ms": tail_plain_ms, "bound_ms": tail_b, "bound_by": tail_by,
+        "library_ms": None, "path": "kzg", "counter": TAIL_KERNEL,
     }]
 
 
@@ -1815,7 +1976,7 @@ def phase6_harness(k, launches, reset_launches):
         if not all(float(v) > 0 for v in rows[0][1:]):
             fail(f"the harness row of {name} holds no time: {added}")
         log(f"[harness] {name} row: {','.join(rows[0])} ms")
-    for name in MSM_KERNELS + (FUSED_KERNEL, "mont_mul_chain"):
+    for name in MSM_KERNELS + FUSED_KERNELS + ("mont_mul_chain",):
         if harness_path[name] <= 0:
             fail(f"kernel {name} was not launched on the harness path")
     return harness_path
@@ -2153,7 +2314,7 @@ def phase9_univariate(torch, k, launches, reset_launches, shapes):
     del param
     prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_launches,
                     must=("msm_bucket_sums", "msm_window_sums"),
-                    must_not=("sumcheck_round", "sumcheck_fold", FUSED_KERNEL) + FS_KERNELS)
+                    must_not=("sumcheck_round", "sumcheck_fold") + FUSED_KERNELS + FS_KERNELS)
     del backend, pp, vp, ci, circuit
     torch.cuda.empty_cache()
 
@@ -2302,7 +2463,7 @@ def phase11_sharded(torch, k, launches, reset_launches, shapes, ranks):
             prove_s, path, proof, _ = prove_and_check(
                 torch, f"mesh1 nccl k={k}", HyperPlonk(MultilinearKzg()), shapes["pp"],
                 shapes["vp"], circuit, BN254_FR, launches, reset_launches,
-                must=PER_ROUND_KERNELS, must_not=(FUSED_KERNEL,), mesh=mesh)
+                must=PER_ROUND_KERNELS, must_not=FUSED_KERNELS, mesh=mesh)
             if mesh.collectives <= 0 or mesh.taken["sum_check"] != 2:
                 fail(f"[mesh1 nccl] the prove did not go through the mesh: {dict(mesh.taken)}")
     finally:
@@ -2329,11 +2490,13 @@ def phase11_sharded(torch, k, launches, reset_launches, shapes, ranks):
             f"{r['k3_built']}")
         if r["proof"] != want:
             fail(f"[{tag}] the proof differs from phase 4's unsharded proof")
-        for name in PER_ROUND_KERNELS + (FUSED_KERNEL,):
+        for name in PER_ROUND_KERNELS + (TAIL_KERNEL,):
             if r["launches"][name] <= 0:
                 fail(f"[{tag}] kernel {name} was not launched on the rank's rows")
-        # k - 1 sharded rounds one by one, then K7 for the last once the rows are gathered
-        if (r["launches"][FUSED_KERNEL], r["launches"]["sumcheck_round"]) != (1, k - 1):
+        # k - 1 sharded rounds one by one, then K7's tail for the last once the
+        # rows are gathered (one pair: no grid rounds)
+        if (r["launches"][TAIL_KERNEL], r["launches"][FUSED_KERNEL],
+                r["launches"]["sumcheck_round"]) != (1, 0, k - 1):
             fail(f"[{tag}] the zero-check's sharded rounds or K7 after the gather did not "
                  f"launch as expected: {json.dumps(r['launches'])}")
         if r["taken"].get("msm", 0) <= 0 or r["taken"].get("sum_check") != 2:

@@ -26,7 +26,10 @@ static void fe_op(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
       case 1: r = fe_sub<F>(x, y); break;
       case 2: r = fe_mul<F>(x, y); break;
       case 3: r = fe_neg<F>(x); break;
-      default: r = fe_mul_f32<F>(x, y); break;
+      case 4: r = fe_mul_f32<F>(x, y); break;
+      case 5: r = fe_mul_ptx<F>(x, y); break;
+      case 6: r = fe_add_ptx<F>(x, y); break;
+      default: r = fe_sub_ptx<F>(x, y); break;
     }
     fe_store(out + 8 * i, r);
   }
@@ -143,10 +146,15 @@ int twin_mont_mul_chain(const uint32_t* a, const uint32_t* b, uint32_t* out,
     return chain_dispatch<Fq, 0>(a, b, out, n, chain, per_thread, stride);
   if (field == 1 && variant == 1)
     return chain_dispatch<Fq, 1>(a, b, out, n, chain, per_thread, stride);
+  if (field == 0 && variant == 2)
+    return chain_dispatch<Fr, 2>(a, b, out, n, chain, per_thread, stride);
+  if (field == 1 && variant == 2)
+    return chain_dispatch<Fq, 2>(a, b, out, n, chain, per_thread, stride);
   return -1;
 }
 
-// field: 0 = Fr, 1 = Fq; op: 0 add, 1 sub, 2 mul, 3 neg, 4 mul in float32.
+// field: 0 = Fr, 1 = Fq; op: 0 add, 1 sub, 2 mul, 3 neg, 4 mul in float32, 5 mul, 6 add
+// and 7 sub in PTX carry chains (field_ptx.cuh's steps, the carries in a variable).
 void twin_fe_op(int field, int op, const uint32_t* a, const uint32_t* b,
                 uint32_t* out, int64_t n) {
   if (field == 0)

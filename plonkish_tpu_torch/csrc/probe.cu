@@ -4,7 +4,8 @@
 // check_f32_mul): acc = a; repeat `chain` times acc = mul(acc, b), elementwise,
 // so out[i] = a[i] * b[i]^chain * R^-chain mod p.  `mul` is the integer CIOS
 // product fe_mul (variant 0) or the float32 byte-digit product fe_mul_f32
-// (variant 1) of field.cuh, the two multipliers whose rates the probe
+// (variant 1) of field.cuh, or the product in PTX carry chains fe_mul_ptx
+// (variant 2, field_ptx.cuh), the multipliers whose rates the probe
 // compares and whose outputs must be equal.
 //
 // The Pallas kernel runs a grid of 64 steps over one resident block of
@@ -18,7 +19,7 @@
 // for 16 products of 256 multiply-adds, about 8x over the byte bound at the
 // card's rates, so the time is a compute rate.  That rate, products per
 // second, is what the roofline of the other kernels is read against.
-#include "field.cuh"
+#include "field_ptx.cuh"
 
 namespace pk {
 
@@ -26,8 +27,10 @@ template <class F, int V>
 PK_HD Fe probe_mul(const Fe& x, const Fe& y) {
   if constexpr (V == 0)
     return fe_mul<F>(x, y);
-  else
+  else if constexpr (V == 1)
     return fe_mul_f32<F>(x, y);
+  else
+    return fe_mul_ptx<F>(x, y);
 }
 
 // One thread's pass: elements base, base + stride, ... (E of them, those < n).
@@ -81,7 +84,40 @@ static int launch_chain(const uint32_t* a, const uint32_t* b, uint32_t* out,
   return (int)cudaGetLastError();
 }
 
-// field: 0 = Fr, 1 = Fq; variant: 0 = integer product, 1 = float32 product;
+// The PTX sum and difference (field_ptx.cuh, the tape's in K3 and K7) beside
+// field.cuh's, for chip_smoke.py's check on the card: out[i] = a + b, a + b,
+// a - b, a - b, -a, -a, each pair the PTX one then field.cuh's.
+template <class F>
+__global__ void field_ops_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    Fe x = fe_load(a + 8 * i), y = fe_load(b + 8 * i);
+    uint32_t* o = out + 48 * i;
+    fe_store(o, fe_add_ptx<F>(x, y));
+    fe_store(o + 8, fe_add<F>(x, y));
+    fe_store(o + 16, fe_sub_ptx<F>(x, y));
+    fe_store(o + 24, fe_sub<F>(x, y));
+    fe_store(o + 32, fe_sub_ptx<F>(fe_zero(), x));
+    fe_store(o + 40, fe_neg<F>(x));
+  }
+}
+
+extern "C" int field_ops_compare(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                                 long long n, int field, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  if (n <= 0) return 0;
+  if (field == 0)
+    field_ops_kernel<Fr><<<blocks, 256, 0, st>>>(a, b, out, n);
+  else if (field == 1)
+    field_ops_kernel<Fq><<<blocks, 256, 0, st>>>(a, b, out, n);
+  else
+    return -1;
+  return (int)cudaGetLastError();
+}
+
+// field: 0 = Fr, 1 = Fq; variant: 0 = integer product, 1 = float32 product,
+// 2 = integer product in PTX carry chains;
 // per_thread: 1, 2 or 4.  Returns 0, a CUDA error code, or -1 for an
 // argument the kernel is not built for.
 extern "C" int mont_mul_chain(const uint32_t* a, const uint32_t* b, uint32_t* out,
@@ -97,6 +133,10 @@ extern "C" int mont_mul_chain(const uint32_t* a, const uint32_t* b, uint32_t* ou
     return launch_chain<Fq, 0>(a, b, out, n, chain, per_thread, blocks, threads, st);
   if (field == 1 && variant == 1)
     return launch_chain<Fq, 1>(a, b, out, n, chain, per_thread, blocks, threads, st);
+  if (field == 0 && variant == 2)
+    return launch_chain<Fr, 2>(a, b, out, n, chain, per_thread, blocks, threads, st);
+  if (field == 1 && variant == 2)
+    return launch_chain<Fq, 2>(a, b, out, n, chain, per_thread, blocks, threads, st);
   return -1;
 }
 

@@ -33,16 +33,20 @@
 // threads one after another (tests/test_torch_sumcheck_gen.py).
 #pragma once
 
-#include "field.cuh"
+#include "field_ptx.cuh"
 
 namespace pk {
 
 constexpr int SC_WARP = 32;
 constexpr int SC_REDUCE_THREADS = 128;
 
-// fe_mul for the tape's products: one out-of-line function that every
-// product calls.  On an H100 it ran faster than a copy inlined at each
-// product, on every tape measured (PERF.md).  g++ has no __noinline__.
+// The tape's products: one out-of-line function that every product calls.
+// On an H100 it ran faster than a copy inlined at each product, on every
+// tape measured (PERF.md).  g++ has no __noinline__.  On the card it is the
+// product in PTX carry chains (field_ptx.cuh), faster than fe_mul there
+// (PERF.md, K5's variants), and the tape's sums and differences are
+// field_ptx.cuh's too; the host build keeps field.cuh's fe_mul, fe_add and
+// fe_sub.
 #ifdef __CUDACC__
 #define PK_SC_NOINLINE __noinline__
 #else
@@ -51,22 +55,53 @@ constexpr int SC_REDUCE_THREADS = 128;
 
 template <class F>
 __host__ __device__ PK_SC_NOINLINE Fe sc_mul(const Fe a, const Fe b) {
+#ifdef __CUDA_ARCH__
+  return fe_mul_ptx<F>(a, b);
+#else
   return fe_mul<F>(a, b);
+#endif
+}
+
+template <class F>
+PK_HD Fe sc_add(const Fe& a, const Fe& b) {
+#ifdef __CUDA_ARCH__
+  return fe_add_ptx<F>(a, b);
+#else
+  return fe_add<F>(a, b);
+#endif
+}
+
+template <class F>
+PK_HD Fe sc_sub(const Fe& a, const Fe& b) {
+#ifdef __CUDA_ARCH__
+  return fe_sub_ptx<F>(a, b);
+#else
+  return fe_sub<F>(a, b);
+#endif
+}
+
+template <class F>
+PK_HD Fe sc_neg(const Fe& a) {
+  return sc_sub<F>(fe_zero(), a);
 }
 
 // lo and hi of one pair: 64 contiguous bytes, read by four coherent loads
-// (ld.global) in an asm statement without memory effects.  Not __ldg: K7
-// (sumcheck_fused.cuh) runs the same Tape over tables that its own blocks
-// wrote in an earlier round of the same launch, which the read-only path
-// may not see.  Not a plain C++ load either: the compiler must keep those in
-// order with the calls of the out-of-line sc_mul, and held the loaded values
-// in registers across them (more registers, fewer warps and a slower K3 on
-// an H100); the asm statement moves as freely as __ldg.  K7's grid barrier
-// orders the rounds' writes before these loads.
+// (generic-address ld, so that the same Tape reads device memory in K3 and
+// K7's grid rounds and shared memory in K7's tail) in an asm statement
+// without memory effects.  Not __ldg: K7 (sumcheck_fused.cuh) runs the same
+// Tape over tables that its own blocks wrote in an earlier round of the
+// same launch, which the read-only path may not see.  Not a plain C++ load
+// either: the compiler must keep those in order with the calls of the
+// out-of-line sc_mul, and held the loaded values in registers across them
+// (more registers, fewer warps and a slower K3 on an H100); the asm
+// statement moves as freely as __ldg.  Such a statement is ordered only by
+// its operands, so K7 adds to the state's address the result (zero) of the
+// block barrier that follows the writes a round reads (sumcheck_fused.cuh
+// sc_grid_sync): no load can move above that barrier.
 #ifdef __CUDACC__
 __device__ __forceinline__ uint4 sc_load16(const uint4* q) {
   uint4 v;
-  asm("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+  asm("ld.v4.u32 {%0, %1, %2, %3}, [%4];"
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(q));
   return v;
@@ -90,8 +125,8 @@ template <class F>
 PK_HD Fe sc_leaf(const uint32_t* state, int64_t s, int row, int64_t i, int tm1) {
   Fe lo, hi;
   sc_load_pair(state + ((int64_t)row * 2 * s + 2 * i) * 8, lo, hi);
-  Fe step = fe_sub<F>(hi, lo);
-  for (int k = 0; k < tm1; k++) hi = fe_add<F>(hi, step);
+  Fe step = sc_sub<F>(hi, lo);
+  for (int k = 0; k < tm1; k++) hi = sc_add<F>(hi, step);
   return hi;
 }
 
@@ -101,21 +136,27 @@ PK_HD Fe sc_identity(const uint32_t* ids, int64_t i, int tm1) {
   Fe idx = fe_zero();
   idx.v[0] = (uint32_t)i;
   idx.v[1] = (uint32_t)((uint64_t)i >> 32);
-  Fe v = fe_add<F>(sc_mul<F>(idx, fe_load(ids)), fe_load(ids + 8));
+  Fe v = sc_add<F>(sc_mul<F>(idx, fe_load(ids)), fe_load(ids + 8));
   Fe step = fe_load(ids + 16);
-  for (int k = 0; k < tm1; k++) v = fe_add<F>(v, step);
+  for (int k = 0; k < tm1; k++) v = sc_add<F>(v, step);
   return v;
 }
 
 PK_HD Fe sc_const(const uint32_t* consts, int j) { return fe_load(consts + 8 * j); }
 
 // K4's element e: new[e] = lo + c (hi - lo) of rows 2e and 2e + 1 of the
-// flat state (every table folds at once, out of place); K7 folds with it too.
+// flat state (every table folds at once, out of place); K7 folds with
+// fold_value, the same arithmetic with sc_mul's out-of-line product.
 template <class F>
 PK_HD void fold_element(int64_t e, const uint32_t* state, const Fe& c, uint32_t* out) {
   Fe lo = fe_load(state + 2 * e * 8);
   Fe hi = fe_load(state + (2 * e + 1) * 8);
   fe_store(out + e * 8, fe_add<F>(lo, fe_mul<F>(fe_sub<F>(hi, lo), c)));
+}
+
+template <class F>
+PK_HD Fe fold_value(const Fe& lo, const Fe& hi, const Fe& c) {
+  return sc_add<F>(lo, sc_mul<F>(sc_sub<F>(hi, lo), c));
 }
 
 // The register file of a tape with more registers than a thread can hold
@@ -142,7 +183,7 @@ PK_HD Fe sc_thread_sum(const uint32_t* state, int64_t s, const uint32_t* consts,
                        const uint32_t* ids, int tm1, int64_t first, int64_t stride) {
   Fe acc = fe_zero();
   for (int64_t i = first; i < s; i += stride)
-    acc = fe_add<typename Tape::F>(acc, Tape::eval(state, s, i, tm1, consts, ids));
+    acc = sc_add<typename Tape::F>(acc, Tape::eval(state, s, i, tm1, consts, ids));
   return acc;
 }
 

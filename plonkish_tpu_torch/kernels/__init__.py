@@ -29,6 +29,7 @@ LAUNCHES = {
     "fs_round_message": 0,
     "fs_coeff_message": 0,
     "sumcheck_fused": 0,
+    "sumcheck_fused_tail": 0,
 }
 
 

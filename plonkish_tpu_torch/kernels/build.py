@@ -141,7 +141,7 @@ def build_host(src: pathlib.Path, out: pathlib.Path, opt: str = "-O2") -> pathli
 
 def build_cpu_twin() -> pathlib.Path:
     """g++ build of csrc/cpu_twin.cpp (the headers on the host), for tests."""
-    names = ["cpu_twin.cpp", "field.cuh", "curve.cuh", "msm.cuh", "fiat_shamir.cuh",
+    names = ["cpu_twin.cpp", "field.cuh", "field_ptx.cuh", "curve.cuh", "msm.cuh", "fiat_shamir.cuh",
              "fs_warp.cuh", "sumcheck.cuh", *CUDA_SOURCES]
     return build_host(CSRC / "cpu_twin.cpp",
                       BUILD / f"libplonkish_cpu_twin_{_digest(names)}.so")

@@ -25,12 +25,15 @@ K4 folds every table at once: new[i] = lo + c * (hi - lo).
 
 K7, the fused sum-check rounds (port-only; it stands for the JAX package's
 fused-round programs, plonkish_tpu/piop/sum_check.py:573 and :609), runs
-every round of an Evaluations sum-check from a given one to the last in one
-cooperative launch: K3's sums, K6's round message and K4's fold a round,
-grid-wide barriers between them.  Its source (``csrc/sumcheck_fused.cuh``) is
-instantiated in the tape's generated source beside K3.  ``fused_rounds``
-takes the same buffers as the per-round path (piop/sum_check.py
-``DeviceFsRun``) and its plain version runs that path's plain K3, K6 and K4.
+every round of an Evaluations sum-check from a given one to the last in two
+launches on one stream: the grid rounds (one cooperative launch, grid-wide
+barriers between K3's sums, K6's round message and K4's fold) while a
+round's pairs exceed the handover, then the tail (one thread block cluster,
+the state in the blocks' shared memory, ``tail_plan``).  Its source
+(``csrc/sumcheck_fused.cuh``) is instantiated in the tape's generated source
+beside K3.  ``fused_rounds`` takes the same buffers as the per-round path
+(piop/sum_check.py ``DeviceFsRun``) and its plain version runs that path's
+plain K3, K6 and K4.
 """
 
 from __future__ import annotations
@@ -200,6 +203,32 @@ def fold(spec, stacked, challenge):
 # ---------------------------------------------------------------------------
 
 FUSED_FOLD_PER_THREAD = 4  # csrc/sumcheck_fused.cuh SC_FUSED_FOLD_PER_THREAD
+FUSED_PHASES = 8  # csrc/sumcheck_fused.cuh SC_FUSED_PHASES: the timing build's stamps a round
+PAIR_BYTES = 64  # a pair of one table: two rows of eight words
+
+
+def tail_parts_bytes(cluster: int, degree: int) -> int:
+    """Block 0's partial sums in the tail's shared memory
+    (csrc/sumcheck_fused.cuh sc_tail_parts_words)."""
+    return ((cluster * degree * 8 + 3) & ~3) * 4
+
+
+def tail_plan(tail, tables: int, degree: int):
+    """K7's handover, computed at launch from the number of tables and the
+    cluster's shared memory: (cluster, cap, handover), where `cap` is the
+    pairs of every table that one block's shared memory holds (a power of
+    two), the cluster has min(cluster, cap) blocks and holds `handover` =
+    blocks * cap pairs; the tail takes the rounds from the first whose pairs
+    are at most `handover`, on the cluster while a round has two pairs a
+    block or more, then on block 0.  None where one pair of every table does
+    not fit a block (the grid rounds then run every round)."""
+    cluster = tail.cluster
+    budget = tail.smem - tail_parts_bytes(cluster, degree)
+    if budget < tables * PAIR_BYTES:
+        return None
+    cap = 1 << ((budget // (tables * PAIR_BYTES)).bit_length() - 1)
+    cluster = min(cluster, cap)
+    return cluster, cap, cluster * cap
 
 
 def fused_rounds_plain(spec, stacked, instrs, consts, num_regs, out_reg, degree, ids, rows,
@@ -218,11 +247,15 @@ def fused_rounds_plain(spec, stacked, instrs, consts, num_regs, out_reg, degree,
 
 
 def fused_launch(kern, stream, spec, stacked, consts, degree, ids, rows, sponge, scal, fixed,
-                 out, ch_mont, first, rounds):
-    """Launch K7 through `kern` (a generated library or its host twin).  The
+                 out, ch_mont, first, rounds, times=None):
+    """Launch K7 through `kern` (a generated library or its host twin): the
+    grid rounds while a round's pairs exceed the handover (``tail_plan``),
+    then the tail, each counted in ``LAUNCHES`` where it launches.  The
     second buffer (half the state) and the scratch are allocated here; the
     state is one of K7's two buffers, so it is overwritten (the result may
-    be a view of it)."""
+    be a view of it).  Measurement only (kernel_ab.py): `times`, uint64
+    [rounds, FUSED_PHASES, 2] for a library built with the timing macro,
+    receives the phase stamps."""
     _check_state(stacked)
     if degree != kern.degree:
         raise ValueError(f"the kernel was generated for degree {kern.degree}, not {degree}")
@@ -238,27 +271,60 @@ def fused_launch(kern, stream, spec, stacked, consts, degree, ids, rows, sponge,
                sponge=(sponge, (kfs.SPONGE_WORDS,)), scal=(scal, (2, 8)),
                fixed=(fixed, (2 * (degree + 1), 8)), out=(out, (total, degree + 2, 8)),
                ch_mont=(ch_mont, (8,)))
+    timing = any(key == "timing" and value for key, value in kern.defines)
+    if times is not None:
+        if not timing:
+            raise ValueError("phase stamps need a library built with the timing macro")
+        if (times.dtype != torch.int64 or times.device != dev or not times.is_contiguous()
+                or tuple(times.shape) != (rounds, FUSED_PHASES, 2)):
+            raise ValueError(f"times must be int64[{rounds}, {FUSED_PHASES}, 2] on {dev}")
+    elif timing:
+        raise ValueError("a timing build writes its stamps: pass `times`")
     s0 = rows_0 // 2
-    launch = kern.fused
-    # every block resident, and no more than round `first` keeps at work
-    # (csrc/sumcheck_fused.cuh sc_fused_active); partial sums for at most a
-    # set of pairs a warp
-    sums = -(-s0 // sumcheck_gen.WARP) * degree
-    fold = -(-t_count * s0 // (launch.warps * sumcheck_gen.WARP * FUSED_FOLD_PER_THREAD))
-    blocks = max(1, min(launch.resident, max(fold, -(-sums // launch.warps))))
+    plan = tail_plan(kern.tail, t_count, degree)
+    handover = plan[2] if plan else 0
+    grid_rounds = sum(1 for j in range(rounds) if s0 >> j > handover)
     other = torch.empty((t_count * s0 * 8,), dtype=torch.int32, device=dev)
-    partial = torch.empty((blocks * launch.warps, degree, 8), dtype=torch.int32, device=dev)
-    bar = torch.zeros((1,), dtype=torch.int32, device=dev)
-    rc = launch.fn(stacked.data_ptr(), other.data_ptr(), t_count, s0, consts.data_ptr(),
-                   ids.data_ptr(), partial.data_ptr(), scal.data_ptr(), sponge.data_ptr(),
-                   fixed.data_ptr(), rows.data_ptr(), out.data_ptr(), ch_mont.data_ptr(),
-                   bar.data_ptr(), first, rounds, blocks, launch.warps, stream)
-    if rc != 0:
-        raise RuntimeError(f"sumcheck_fused launch failed: CUDA error {rc}")
-    LAUNCHES["sumcheck_fused"] += 1
+    buffers = (stacked.view(-1), other)
+    stamp = times.data_ptr() if times is not None else 0
+    if grid_rounds:
+        launch = kern.fused
+        # every block resident, and no more than round `first` keeps at work
+        # (csrc/sumcheck_fused.cuh sc_fused_active); a block's partial sums
+        sums = -(-s0 // sumcheck_gen.WARP) * degree
+        fold = -(-t_count * s0 // (launch.warps * sumcheck_gen.WARP * FUSED_FOLD_PER_THREAD))
+        blocks = max(1, min(launch.resident, max(fold, -(-sums // launch.warps))))
+        partial = torch.empty((blocks, degree, 8), dtype=torch.int32, device=dev)
+        bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+        rc = launch.fn(stacked.data_ptr(), other.data_ptr(), t_count, s0, consts.data_ptr(),
+                       ids.data_ptr(), partial.data_ptr(), scal.data_ptr(), sponge.data_ptr(),
+                       fixed.data_ptr(), rows.data_ptr(), out.data_ptr(), ch_mont.data_ptr(),
+                       bar.data_ptr(), stamp, first, grid_rounds, blocks, launch.warps,
+                       launch.capped, stream)
+        if rc != 0:
+            raise RuntimeError(f"sumcheck_fused launch failed: CUDA error {rc}")
+        LAUNCHES["sumcheck_fused"] += 1
+    if grid_rounds < rounds:
+        cluster, _, _ = plan
+        launch, s_t = kern.tail, s0 >> grid_rounds
+        blocks = cluster if s_t >= 2 * cluster else 1
+        # a block's share of the first tail round, or the pairs block 0
+        # gathers (fewer than two a block)
+        state_bytes = t_count * PAIR_BYTES * max(s_t // blocks, blocks)
+        smem = tail_parts_bytes(blocks, degree) + state_bytes
+        src, dst = buffers[grid_rounds % 2], buffers[rounds % 2]
+        rc = launch.fn(src.data_ptr(), dst.data_ptr(), t_count, s_t, consts.data_ptr(),
+                       ids.data_ptr(), scal.data_ptr(), sponge.data_ptr(), fixed.data_ptr(),
+                       rows.data_ptr(), out.data_ptr(), ch_mont.data_ptr(),
+                       stamp and stamp + grid_rounds * FUSED_PHASES * 2 * 8,
+                       first + grid_rounds, rounds - grid_rounds, blocks, launch.warps, smem,
+                       stream)
+        if rc != 0:
+            raise RuntimeError(f"sumcheck_fused_tail launch failed: CUDA error {rc} ({blocks} "
+                               f"blocks in a cluster, {smem} bytes of shared memory)")
+        LAUNCHES["sumcheck_fused_tail"] += 1
     final = rows_0 >> rounds
-    buf = other if rounds % 2 else stacked.view(-1)
-    return buf[: t_count * final * 8].view(t_count, final, 8)
+    return buffers[rounds % 2][: t_count * final * 8].view(t_count, final, 8)
 
 
 def fused_rounds_cuda(spec, stacked, instrs, consts, num_regs, out_reg, degree, ids, rows,

@@ -25,9 +25,14 @@ the launch entry point runs the kernel's threads one after another.
 
 The same source holds K7, the fused sum-check rounds
 (``csrc/sumcheck_fused.cuh``), instantiated with the same ``Tape``: one
-nvcc a tape builds both kernels, and the tape's out-of-line parts (``sc_mul``,
-the REGFILE_PARTs) are compiled once for the two.  ``RoundKernel.fused``
-holds K7's entry point and launch shape.
+nvcc a tape builds K3 and K7's two kernels (the grid rounds and the
+cluster-resident tail), and the tape's out-of-line parts (``sc_mul``, the
+REGFILE_PARTs) are compiled once for them.  ``RoundKernel.fused`` holds the
+grid rounds' entry point and launch shape, ``RoundKernel.tail`` the tail's.
+
+``defines`` adds preprocessor macros at the top of the source, for the
+timing build of ``kernel_ab.py`` only (``MEASURE_DEFINES``: K7's phase
+stamps).  The prove path never sets one.
 """
 
 from __future__ import annotations
@@ -60,23 +65,45 @@ WARP = 32
 # array, since nvcc's time grew faster than the length of one function.
 REGFILE_ABOVE = 64
 REGFILE_PART = 128
-HEADERS = ("field.cuh", "sumcheck.cuh", "fiat_shamir.cuh", "fs_warp.cuh", "sumcheck_fused.cuh")
+HEADERS = ("field.cuh", "field_ptx.cuh", "sumcheck.cuh", "fiat_shamir.cuh", "fs_warp.cuh",
+           "sumcheck_fused.cuh")
 ROUND_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p]
 # sc_fused(a, b, tables, s0, consts, ids, partial, scal, sponge, fixed, rows, out,
-#          ch_mont, bar, first, rounds, blocks, warps, stream)
-FUSED_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 10
-              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+#          ch_mont, bar, times, first, rounds, blocks, warps, capped, stream)
+FUSED_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 11
+              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# sc_fused_tail(src, dst, tables, s0, consts, ids, scal, sponge, fixed, rows, out, ch_mont,
+#               times, first, rounds, blocks, warps, smem, stream)
+TAIL_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 9
+             + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p])
+# The measurement build's macro (csrc/sumcheck_fused.cuh): K7's phase stamps.
+MEASURE_DEFINES = {"timing": "PK_SC_FUSED_TIMING"}
 
 
 @dataclasses.dataclass
 class Launch:
-    """One kernel of a tape's library: its entry point and launch shape."""
+    """K7's grid kernel: its entry point and launch shape."""
 
     fn: object
-    warps: int  # warps (values of t) per block
+    warps: int  # warps per block
     resident: int  # blocks the card holds at once
+    regs: int  # registers per thread (0 in the host build)
+    stack: int  # local memory bytes per thread (0 in the host build)
+    capped: int  # 1: the build capped at `max_threads` a block, 0: the uncapped one
+    max_threads: int  # the capped build's thread limit (0: the uncapped build, the host build)
+    ptxas: str = ""  # both builds' ptxas lines ("" in the host build)
+
+
+@dataclasses.dataclass
+class TailLaunch:
+    """K7's tail kernel: its entry point and launch shape."""
+
+    fn: object
+    warps: int  # warps per block
+    cluster: int  # the cluster's blocks (16, or 8 where the card places no 16)
+    smem: int  # dynamic shared memory bytes a block may take
     regs: int  # registers per thread (0 in the host build)
     stack: int  # local memory bytes per thread (0 in the host build)
     ptxas: str = ""  # the kernel's ptxas lines ("" in the host build)
@@ -97,6 +124,8 @@ class RoundKernel:
     ptxas: str = ""  # the kernel's ptxas lines ("" in the host build)
     build_seconds: float = 0.0  # 0.0 when the library was already built
     fused: Launch = None  # sc_fused (FUSED_ARGS) and sc_fused_config's shape
+    tail: TailLaunch = None  # sc_fused_tail (TAIL_ARGS) and sc_tail_config's shape
+    defines: Tuple = ()  # the measurement macros the library was built with
 
 
 _KERNELS: Dict[Tuple, RoundKernel] = {}  # by structure()
@@ -111,10 +140,20 @@ def structure(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
             field_struct(spec))
 
 
+def _macros(defines) -> List[str]:
+    """`defines`, (name, value) pairs of MEASURE_DEFINES' keys, as #define lines."""
+    lines = []
+    for key, value in defines:
+        if key not in MEASURE_DEFINES:
+            raise ValueError(f"unknown measurement macro {key!r}")
+        lines.append(f"#define {MEASURE_DEFINES[key]} {int(value)}")
+    return lines
+
+
 def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
-           spec: FieldSpec = BN254_FR) -> str:
+           spec: FieldSpec = BN254_FR, defines: Tuple = ()) -> str:
     """C++ of the struct Tape and the library's entry points for one tape
-    over `spec` (BN254 Fr or Fq)."""
+    over `spec` (BN254 Fr or Fq); `defines` as ``_macros``."""
     instrs = np.asarray(instrs, dtype=np.int32)
     if degree < 1:
         raise ValueError(f"degree must be at least 1, got {degree}")
@@ -125,11 +164,11 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
     body = []
     for op, a, b, dst in instrs.tolist():
         if op == tape_mod.OP_ADD:
-            rhs = f"fe_add<F>({r(a)}, {r(b)})"
+            rhs = f"sc_add<F>({r(a)}, {r(b)})"
         elif op == tape_mod.OP_MUL:
             rhs = f"sc_mul<F>({r(a)}, {r(b)})"
         elif op == tape_mod.OP_NEG:
-            rhs = f"fe_neg<F>({r(a)})"
+            rhs = f"sc_neg<F>({r(a)})"
         elif op == tape_mod.OP_CONST:
             rhs = f"sc_const(consts, {a})"
         elif op == tape_mod.OP_LOAD and a == tables:
@@ -157,6 +196,7 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
         "instructions, "
         f"{ops.count(tape_mod.OP_MUL)} products,",
         f"// {num_regs} registers, {tables} tables, degree {degree}, over {spec.name}).",
+        *_macros(defines),
         '#include "sumcheck_fused.cuh"',
         "",
         "namespace pk {",
@@ -184,19 +224,33 @@ def source(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
         "",
         'extern "C" int sc_config(int* out) { return pk::sc_round_config<pk::Tape>(out); }',
         "",
-        "// K7: rounds first .. first + rounds - 1 in one cooperative launch.",
+        "// K7's grid rounds: rounds first .. first + rounds - 1 in one cooperative launch.",
         'extern "C" int sc_fused(uint32_t* a, uint32_t* b, long long tables, long long s0,',
         "                        const uint32_t* consts, uint32_t* ids, uint32_t* partial,",
         "                        uint32_t* scal, uint32_t* sponge, const uint32_t* fixed,",
         "                        const uint32_t* rows, uint32_t* out, uint32_t* ch_mont,",
-        "                        uint32_t* bar, int first, int rounds, int blocks, int warps,",
-        "                        void* stream) {",
+        "                        uint32_t* bar, unsigned long long* times, int first, int rounds,",
+        "                        int blocks, int warps, int capped, void* stream) {",
         "  pk::ScFused p{a, b, tables, s0, consts, ids, partial, scal, sponge, fixed, rows, out,",
-        "                ch_mont, bar, first, rounds};",
-        "  return pk::sc_fused_run<pk::Tape>(p, blocks, warps, stream);",
+        "                ch_mont, bar, times, first, rounds};",
+        "  return pk::sc_fused_run<pk::Tape>(p, blocks, warps, capped, stream);",
         "}",
         "",
         'extern "C" int sc_fused_config(int* out) { return pk::sc_fused_config<pk::Tape>(out); }',
+        "",
+        "// K7's tail: rounds first .. first + rounds - 1 on one cluster of `blocks`.",
+        'extern "C" int sc_fused_tail(uint32_t* src, uint32_t* dst, long long tables, long long s0,',
+        "                             const uint32_t* consts, uint32_t* ids, uint32_t* scal,",
+        "                             uint32_t* sponge, const uint32_t* fixed, const uint32_t* rows,",
+        "                             uint32_t* out, uint32_t* ch_mont, unsigned long long* times,",
+        "                             int first, int rounds, int blocks, int warps, long long smem,",
+        "                             void* stream) {",
+        "  pk::ScFused p{src, dst, tables, s0, consts, ids, nullptr, scal, sponge, fixed, rows, out,",
+        "                ch_mont, nullptr, times, first, rounds};",
+        "  return pk::sc_tail_run<pk::Tape>(p, blocks, warps, smem, stream);",
+        "}",
+        "",
+        'extern "C" int sc_tail_config(int* out) { return pk::sc_tail_config<pk::Tape>(out); }',
         "",
     ])
 
@@ -218,15 +272,19 @@ def _paths(src: str):
 
 
 def _kernel_ptxas(log: str, kernel: str = "sc_round_kernel") -> str:
-    """What ptxas reports for `kernel` (sc_round_kernel or sc_fused_kernel)
-    and sc_mul: registers, stack frame, spills."""
+    """What ptxas reports for `kernel` (sc_round_kernel, sc_fused_kernel, with
+    its capped build as sc_fused_kernel_capped, or sc_tail_kernel), sc_mul
+    and K7's out-of-line message: registers, stack frame, spills."""
     out, subject = [], None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?(?: for|$)",
                       line.strip())
         if m:
             name = m.group(1)
-            subject = next((k for k in (kernel, "sc_mul") if k in name), None)
+            subject = next((k for k in (kernel, "sc_mul", "sc_fused_message") if k in name),
+                           None)
+            if subject == "sc_fused_kernel" and "sc_fused_kernel_capped" in name:
+                subject = "sc_fused_kernel_capped"  # the grid kernel's capped build
             continue
         if subject and ("stack frame" in line or "Used" in line):
             out.append(f"{subject}: " + re.sub(r"^ptxas info\s*:\s*", "", line.strip()))
@@ -239,23 +297,29 @@ def _write(path: pathlib.Path, text: str) -> None:
     os.replace(tmp, path)
 
 
-def _config(lib, name: str, path: pathlib.Path):
-    cfg = (ctypes.c_int * 4)()
+def _config(lib, name: str, path: pathlib.Path, count: int = 4):
+    cfg = (ctypes.c_int * count)()
     rc = build.bind(getattr(lib, name), [ctypes.c_void_p])(ctypes.addressof(cfg))
     if rc != 0:
         raise RuntimeError(f"{name} of {path.name} failed: CUDA error {rc}")
     return list(cfg)
 
 
-def _open(path: pathlib.Path, degree: int, log: str = "", seconds: float = 0.0) -> RoundKernel:
-    """Load a built library and ask it for both kernels' launch shapes."""
+def _open(path: pathlib.Path, degree: int, log: str = "", seconds: float = 0.0,
+          defines: Tuple = ()) -> RoundKernel:
+    """Load a built library and ask it for its kernels' launch shapes."""
     lib = ctypes.CDLL(str(path))
     warps, resident, regs, stack = _config(lib, "sc_config", path)
-    fused = Launch(build.bind(lib.sc_fused, FUSED_ARGS), *_config(lib, "sc_fused_config", path),
+    fused = Launch(build.bind(lib.sc_fused, FUSED_ARGS),
+                   *_config(lib, "sc_fused_config", path, 6),
                    ptxas=_kernel_ptxas(log, "sc_fused_kernel"))
+    tail = TailLaunch(build.bind(lib.sc_fused_tail, TAIL_ARGS),
+                      *_config(lib, "sc_tail_config", path, 5),
+                      ptxas=_kernel_ptxas(log, "sc_tail_kernel"))
     return RoundKernel(fn=build.bind(lib.sc_round, ROUND_ARGS), degree=degree, warps=warps,
                        resident=resident, regs=regs, stack=stack, path=path,
-                       ptxas=_kernel_ptxas(log), build_seconds=seconds, fused=fused)
+                       ptxas=_kernel_ptxas(log), build_seconds=seconds, fused=fused, tail=tail,
+                       defines=tuple(defines))
 
 
 def _nvcc_build(cu: pathlib.Path, lib: pathlib.Path, log: pathlib.Path) -> float:
@@ -273,15 +337,17 @@ def _nvcc_build(cu: pathlib.Path, lib: pathlib.Path, log: pathlib.Path) -> float
     return time.time() - t0
 
 
-def prebuild(tapes: Sequence[Tuple]) -> List[RoundKernel]:
+def prebuild(tapes: Sequence[Tuple], defines: Tuple = ()) -> List[RoundKernel]:
     """Kernels for several tapes (instrs, num_regs, out_reg, tables, degree
-    [, spec]); the missing ones are built together, one nvcc for each, all started at
-    once."""
-    keys = [structure(*t) for t in tapes]
+    [, spec]), with the measurement macros `defines` (none on the prove
+    path); the missing ones are built together, one nvcc for each, all
+    started at once."""
+    defines = tuple(defines)
+    keys = [structure(*t) + (defines,) for t in tapes]
     todo = {}
     for key, t in zip(keys, tapes):
         if key not in _KERNELS:
-            todo.setdefault(key, source(*t))
+            todo.setdefault(key, source(*t, defines=defines))
     if todo:
         with build._locked("lock.sc_round"):
             jobs = {}
@@ -296,21 +362,23 @@ def prebuild(tapes: Sequence[Tuple]) -> List[RoundKernel]:
         for key, src in todo.items():
             _, lib, log = _paths(src)
             text = log.read_text() if log.exists() else ""
-            _KERNELS[key] = _open(lib, key[5], text, seconds.get(key, 0.0))
+            _KERNELS[key] = _open(lib, key[5], text, seconds.get(key, 0.0), defines)
             BUILDS.append(_KERNELS[key])
     return [_KERNELS[key] for key in keys]
 
 
 def kernel(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
-           spec: FieldSpec = BN254_FR) -> RoundKernel:
-    """The CUDA round kernel of one tape over `spec`, built at its first use."""
-    return prebuild([(instrs, num_regs, out_reg, tables, degree, spec)])[0]
+           spec: FieldSpec = BN254_FR, defines: Tuple = ()) -> RoundKernel:
+    """The CUDA round kernel of one tape over `spec`, built at its first use
+    (`defines`: the measurement macros, as ``prebuild``)."""
+    return prebuild([(instrs, num_regs, out_reg, tables, degree, spec)], defines)[0]
 
 
 def twin(instrs, num_regs: int, out_reg: int, tables: int, degree: int,
          opt: str = "-O1", spec: FieldSpec = BN254_FR) -> RoundKernel:
     """The same generated source built with g++ (CPU tests only): sc_round
-    runs the kernel's blocks and lanes one after another."""
+    runs the kernel's blocks and lanes one after another, sc_fused and
+    sc_fused_tail K7's."""
     src = source(instrs, num_regs, out_reg, tables, degree, spec)
     tag = digest(src, ["g++", opt])
     cu = build.BUILD / f"sc_round_twin_{tag}.cu"

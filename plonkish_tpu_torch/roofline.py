@@ -345,9 +345,10 @@ _measured: dict = {}
 
 def probe_sweep(device, n: int = PROBE_N, chain: int = PROBE_CHAIN,
                 reps: int = PROBE_REPS):
-    """Time K5 for both multipliers over 1, 2 and 4 elements per thread and
-    blocks of 128 and 256 threads.  Returns ``[(variant, per_thread, threads,
-    ms), ...]``; the two variants' outputs must be equal."""
+    """Time K5 for every multiplier (``probe.VARIANTS``) over 1, 2 and 4
+    elements per thread and blocks of 128 and 256 threads.  Returns
+    ``[(variant, per_thread, threads, ms), ...]``; the variants' outputs must
+    be equal."""
     import torch
 
     from .fields.spec import BN254_FR
@@ -381,16 +382,18 @@ def probe_sweep(device, n: int = PROBE_N, chain: int = PROBE_CHAIN,
                 torch.cuda.synchronize(device)
                 rows.append((variant, per_thread, threads,
                              start.elapsed_time(end) / reps))
-    if not torch.equal(outs["u32"], outs["f32"]):
-        raise RuntimeError("mont_mul_chain: the u32 and f32 products disagree")
+    for variant in probe.VARIANTS[1:]:
+        if not torch.equal(outs["u32"], outs[variant]):
+            raise RuntimeError(f"mont_mul_chain: the u32 and {variant} products disagree")
     return rows
 
 
 def peaks_from_sweep(sweep, device) -> dict:
-    """The card's peaks from one ``probe_sweep``: ``fe_mul_per_s`` and
-    ``fe_mul_f32_per_s`` are the best products per second of the two
-    multipliers over the sweep (a compute rate: at chain 16 the work is about
-    8x over the byte bound)."""
+    """The card's peaks from one ``probe_sweep``: ``fe_mul_per_s``,
+    ``fe_mul_f32_per_s`` and ``fe_mul_ptx_per_s`` are the best products per
+    second of the three multipliers over the sweep (a compute rate: at chain
+    16 the work is about 8x over the byte bound); the measured multiply-add
+    rate is the faster integer product's."""
     import torch
 
     products = PROBE_N * PROBE_CHAIN
@@ -403,7 +406,8 @@ def peaks_from_sweep(sweep, device) -> dict:
     return {
         "fe_mul_per_s": rate["u32"],
         "fe_mul_f32_per_s": rate["f32"],
-        "imad_per_s_measured": rate["u32"] * FE_MUL_IMAD,
+        "fe_mul_ptx_per_s": rate["ptx"],
+        "imad_per_s_measured": max(rate["u32"], rate["ptx"]) * FE_MUL_IMAD,
         "imad_per_s_assumed": imad_assumed_per_s(sm_count),
         "hbm_bytes_per_s": PEAKS["hbm_bytes_per_s"],
         "card": card_line(),

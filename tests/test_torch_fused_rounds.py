@@ -238,3 +238,106 @@ def test_fused_under_a_two_rank_mesh(monkeypatch):
     for host, per_round, fused in results:
         assert host[:3] == per_round[:3] == fused[:3] == want[:3]
         assert fused[3] == [(k - 1, 1)]
+
+
+@pytest.mark.parametrize("tables,degree,cluster,smem,want", [
+    (16, 5, 16, 228864, (16, 128, 2048)),   # the vanilla tape on the card's 16-block cluster
+    (16, 5, 8, 228864, (8, 128, 1024)),      # ... on 8 blocks
+    (297, 3, 16, 228864, (8, 8, 64)),        # the sha256 tape: 8 pairs a block, 8 blocks
+    (1, 1, 16, 228864, (16, 2048, 32768)),   # one table
+    (3600, 5, 16, 228864, None),             # no pair of every table fits a block
+    (16, 5, 4, 4096 + 4 * 5 * 8 * 4, (4, 4, 16)),  # the host twin's small cluster
+])
+def test_tail_plan_from_tables_and_shared_memory(tables, degree, cluster, smem, want):
+    """K7's handover: `cap` pairs of every table in one block's shared memory
+    after block 0's partial sums, a cluster of at most `cap` blocks, the
+    handover their product."""
+    tail = type("Tail", (), {"cluster": cluster, "smem": smem})()
+    plan = ksc.tail_plan(tail, tables, degree)
+    assert plan == want
+    if plan:
+        budget = smem - ksc.tail_parts_bytes(cluster, degree)
+        assert plan[1] * tables * ksc.PAIR_BYTES <= budget < 2 * plan[1] * tables * ksc.PAIR_BYTES
+    two = type("Tail", (), {"cluster": 2, "smem": smem})()  # a library with a cluster of 2
+    small = ksc.tail_plan(two, tables, degree)
+    assert (small is None) == (plan is None)
+    if small:
+        assert small[0] == min(2, small[1]) and small[2] == small[0] * small[1]
+        assert small[1] >= (plan[1] if plan else 1)  # block 0's partial sums shrink with it
+
+
+def _twin_run(k, first, rounds, **tail):
+    """K7 through the generated source built with g++ (kernels/sumcheck_gen.py
+    twin), its tail's launch shape changed by `tail` (TailLaunch fields),
+    from round `first` for `rounds` rounds, and its plain version, on the
+    vanilla sum-check at k: both results and buffers, and the launches of
+    K7's two kernels."""
+    import dataclasses
+
+    from plonkish_tpu_torch.kernels import LAUNCHES, sumcheck_gen
+
+    spec, vp, sum_ = case("vanilla", k, seed=5)
+    state = sc.ProverState(spec, k, sum_, vp)
+    prover = sc.EvaluationsProver(state)
+    t = prover.tape
+    kern = sumcheck_gen.twin(prover.instrs, t.num_regs, t.out_reg, state.stacked.shape[0],
+                             state.degree, spec=spec)
+    kern = dataclasses.replace(kern, tail=dataclasses.replace(kern.tail, **tail))
+    rows = state.stacked[:, : state.stacked.shape[1] >> first].contiguous()
+    runs = []
+    for _ in range(2):
+        run = sc.DeviceFsRun(state, prover, transcript(spec, 32, 3))
+        run.out.zero_()  # the rows before `first` are not written
+        runs.append([run.ids, run.rows, run.sponge, run.scal, run.fixed, run.out, run.ch_mont])
+    before = dict(LAUNCHES)
+    got = ksc.fused_launch(kern, None, spec, rows.clone(), prover.consts, state.degree,
+                           *runs[0], first, rounds)
+    counts = tuple(LAUNCHES[n] - before[n] for n in ("sumcheck_fused", "sumcheck_fused_tail"))
+    want = PLAIN(spec, rows.clone(), prover.instrs, prover.consts, t.num_regs, t.out_reg,
+                 state.degree, *runs[1], first, rounds)
+    return (got, *runs[0]), (want, *runs[1]), counts, kern
+
+
+@pytest.mark.parametrize("first,rounds,opts,counts", [
+    (0, 6, {}, (1, 1)),                   # 32 pairs: the grid round, then the tail from 16
+    (1, 5, {}, (0, 1)),                   # from 16 pairs: the tail alone
+    (0, 1, {}, (1, 0)),                   # one round above the handover: the grid alone
+    (0, 6, {"smem": 1024}, (1, 0)),       # no pair of every table fits a block: the grid alone
+    (0, 6, {"cluster": 2}, (1, 1)),       # a cluster of 2: the grid to 16 pairs, the tail from 8
+])
+def test_fused_launch_splits_the_rounds_at_the_handover(first, rounds, opts, counts):
+    """The wrapper launches K7's grid kernel for the rounds above the
+    handover and its tail for the rest, each counted where it launches, and
+    every split gives the plain rounds' result in every buffer; `opts`
+    change the tail's launch shape as another card's would."""
+    try:
+        got, want, launched, kern = _twin_run(6, first, rounds, **opts)
+    except FileNotFoundError as e:
+        pytest.skip(f"no host C++ compiler: {e}")
+    assert launched == counts
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_fused_launch_refuses_stamps_without_the_timing_build():
+    """Phase stamps need the measurement build with the timing macro; the
+    generator refuses a macro it does not know."""
+    from plonkish_tpu_torch.kernels import sumcheck_gen
+
+    try:
+        _, _, _, kern = _twin_run(4, 0, 4)
+    except FileNotFoundError as e:
+        pytest.skip(f"no host C++ compiler: {e}")
+    spec, vp, sum_ = case("vanilla", 4, seed=5)
+    state = sc.ProverState(spec, 4, sum_, vp)
+    prover = sc.EvaluationsProver(state)
+    run = sc.DeviceFsRun(state, prover, Keccak256Transcript(spec))
+    times = torch.zeros((4, ksc.FUSED_PHASES, 2), dtype=torch.int64)
+    with pytest.raises(ValueError, match="timing macro"):
+        ksc.fused_launch(kern, None, spec, state.stacked.clone(), prover.consts, state.degree,
+                         run.ids, run.rows, run.sponge, run.scal, run.fixed, run.out,
+                         run.ch_mont, 0, 4, times=times)
+    t = prover.tape
+    with pytest.raises(ValueError, match="unknown measurement macro"):
+        sumcheck_gen.source(prover.instrs, t.num_regs, t.out_reg, state.stacked.shape[0],
+                            state.degree, spec, defines=(("fast", 1),))

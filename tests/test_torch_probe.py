@@ -108,9 +108,76 @@ def test_fe_mul_f32_twin(twin, field):
     assert torch.equal(out_f32, limb.mont_mul(spec, a, a))
 
 
+def _final_subtraction_pairs(p, count, seed):
+    """Pairs below p whose Montgomery product's sum (a b + m p) / R is p or
+    more before the last conditional subtraction."""
+    rng = np.random.default_rng(seed)
+    r = 1 << 256
+    neg_inv = (-pow(p, -1, r)) % r
+    pairs = []
+    while len(pairs) < count:
+        a, b = (sum(int(w) << (32 * i) for i, w in enumerate(rng.integers(0, 1 << 32, 8,
+                                                                           dtype=np.uint64))) % p
+                for _ in range(2))
+        if (a * b + (a * b * neg_inv % r) * p) // r >= p:
+            pairs.append((a, b))
+    return pairs
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_fe_mul_ptx_twin(twin, field):
+    """csrc/field_ptx.cuh::fe_mul_ptx under g++ (its carry chains' steps with
+    the carry in a variable) equals fe_mul and the host's integers: every
+    pair of 0, 1, p - 1 and R mod p, 64 pairs that need the final
+    subtraction and 4,000 random pairs."""
+    spec, _, code = SPECS[field]
+    p = spec.p
+    edge = [0, 1, p - 1, (1 << 256) % p]
+    pairs = [(x, y) for x in edge for y in edge] + _final_subtraction_pairs(p, 64, 21)
+    rng = np.random.default_rng(22)
+    for _ in range(4000):
+        pairs.append(tuple(sum(int(w) << (32 * i) for i, w in enumerate(
+            rng.integers(0, 1 << 32, 8, dtype=np.uint64))) % p for _ in range(2)))
+    a = limb.from_ints([x for x, _ in pairs])
+    b = limb.from_ints([y for _, y in pairs])
+    n = a.shape[0]
+    out_ptx, out_u32 = torch.empty_like(a), torch.empty_like(a)
+    twin.twin_fe_op(code, 5, a.data_ptr(), b.data_ptr(), out_ptx.data_ptr(), n)
+    twin.twin_fe_op(code, 2, a.data_ptr(), b.data_ptr(), out_u32.data_ptr(), n)
+    assert torch.equal(out_ptx, out_u32)
+    r_inv = pow(1 << 256, -1, p)
+    assert limb.to_ints(out_ptx) == [x * y * r_inv % p for x, y in pairs]
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_fe_add_sub_ptx_twin(twin, field):
+    """field_ptx.cuh's fe_add_ptx and fe_sub_ptx under g++ equal fe_add and
+    fe_sub and the host's integers: every pair of 0, 1, p - 1 and R mod p,
+    equal operands, and 4,000 random pairs."""
+    spec, _, code = SPECS[field]
+    p = spec.p
+    edge = [0, 1, p - 1, (1 << 256) % p]
+    pairs = [(x, y) for x in edge for y in edge]
+    rng = np.random.default_rng(23)
+    for i in range(4000):
+        x, y = (sum(int(w) << (32 * j) for j, w in enumerate(
+            rng.integers(0, 1 << 32, 8, dtype=np.uint64))) % p for _ in range(2))
+        pairs.append((x, x if i % 9 == 0 else y))
+    a = limb.from_ints([x for x, _ in pairs])
+    b = limb.from_ints([y for _, y in pairs])
+    n = a.shape[0]
+    for ptx, plain, want in ((6, 0, [(x + y) % p for x, y in pairs]),
+                             (7, 1, [(x - y) % p for x, y in pairs])):
+        got, ref = torch.empty_like(a), torch.empty_like(a)
+        twin.twin_fe_op(code, ptx, a.data_ptr(), b.data_ptr(), got.data_ptr(), n)
+        twin.twin_fe_op(code, plain, a.data_ptr(), b.data_ptr(), ref.data_ptr(), n)
+        assert torch.equal(got, ref)
+        assert limb.to_ints(got) == want
+
+
 @pytest.mark.parametrize("field", ["fr", "fq"])
 @pytest.mark.parametrize("per_thread", [1, 2, 4])
-@pytest.mark.parametrize("variant", ["u32", "f32"])
+@pytest.mark.parametrize("variant", ["u32", "f32", "ptx"])
 def test_chain_kernel_body_twin(twin, variant, per_thread, field):
     """The kernel's per-thread pass, run thread after thread on the host
     through the wrapper's launch logic, equals the plain version."""

@@ -278,3 +278,116 @@ def test_fused_rounds_through_generated_twin(name, num_vars):
         assert got.shape == (stacked.shape[0], 1, 8) and torch.equal(got, want), first
         for n in order:
             assert torch.equal(twin_bufs[n], plain_bufs[n]), (first, n)
+
+
+def _three_tables(pkg_ex):
+    """P0 * P1 + P2 over the expression module `pkg_ex` of either package: 3
+    tables, a count that does not divide the twin's cluster of 4."""
+    P = lambda i: pkg_ex.Polynomial(pkg_ex.Query(i, pkg_ex.Rotation(0)))  # noqa: E731
+    return P(0) * P(1) + P(2)
+
+
+def _both_provers(name, num_vars, seed):
+    """The port's (state, prover) and the JAX package's (state, prover) of
+    one Evaluations sum-check on the same tables, challenges and y."""
+    from plonkish_tpu.utils import expression as ref_ex
+    from plonkish_tpu_torch.utils import expression as ex
+
+    challenges = _ints(3, seed + 100)
+    if name == "three_tables":
+        expr, rexpr = _three_tables(ex), _three_tables(ref_ex)
+    else:
+        expr = getattr(circuits, EXPRESSIONS[name])(BN254_FR, num_vars)
+        rexpr = getattr(ref_circuits, EXPRESSIONS[name])(REF_FR, num_vars)
+    count = 1 + max(q.poly for q in expr.used_query())
+    y = _ints(num_vars, seed + 200)
+    state = sc.ProverState(BN254_FR, num_vars, Fp.zero(BN254_FR), sc.VirtualPolynomial(
+        expr, [MLPoly.from_ints(BN254_FR, _ints(1 << num_vars, seed + i), "cpu")
+               for i in range(count)],
+        [Fp(c, BN254_FR) for c in challenges], [[Fp(v, BN254_FR) for v in y]]))
+    rstate = ref_sc.ProverState(REF_FR, num_vars, RefFp.zero(REF_FR), ref_sc.VirtualPolynomial(
+        rexpr,
+        [RefMLPoly.from_ints(REF_FR, _ints(1 << num_vars, seed + i)) for i in range(count)],
+        [RefFp(c, REF_FR) for c in challenges], [[RefFp(v, REF_FR) for v in y]]))
+    return state, sc.EvaluationsProver(state), rstate, ref_sc.EvaluationsProver(rstate)
+
+
+@pytest.mark.parametrize("name,num_vars,where", [
+    ("vanilla", 4, "tail_from_round_0"),       # 8 pairs, two a block: the cluster from round 0
+    ("vanilla", 8, "tail_mid_way"),            # grid 128..32, the tail from 16
+    ("three_tables", 7, "tables_not_dividing_cluster"),  # a cluster of 4 from 64 pairs
+    ("vanilla", 2, "one_block_from_the_start"),  # 2 pairs: fewer than two a block
+    ("lookup", 6, "lookup_degree"),            # cap 2, a cluster of 2 from 4 pairs
+])
+def test_fused_tail_through_generated_twin(name, num_vars, where):
+    """K7's grid rounds and cluster tail of the generated source built with
+    g++ (the tail on 4 blocks of 2 warps with 4 KB of state each, so that the
+    handover, the cluster's rounds and block 0's gather of the last rounds
+    fall within a few rounds) against the plain K3 -> K6 -> K4 rounds in every buffer, and
+    every round's message against the JAX package's EvaluationsProver on the
+    cpp backend (t = 1..d), driven with the twin's challenges.  The grid kernel launches
+    only where the first round's pairs exceed the handover; the tail once."""
+    from plonkish_tpu_torch.kernels import LAUNCHES
+
+    state, prover, rstate, rprover = _both_provers(name, num_vars, 90)
+    try:
+        kern = sumcheck_gen.twin(*_tape_args(state, prover))
+    except FileNotFoundError as e:
+        pytest.skip(f"no host C++ compiler: {e}")
+    assert (kern.tail.warps, kern.tail.cluster) == (2, 4)
+    tables, degree = state.stacked.shape[0], state.degree
+    cluster, cap, handover = ksc.tail_plan(kern.tail, tables, degree)
+    assert cap * tables * ksc.PAIR_BYTES <= 4096 < 2 * cap * tables * ksc.PAIR_BYTES
+    s0 = 1 << (num_vars - 1)
+    assert (where == "one_block_from_the_start") == (s0 < 2 * cluster)
+    assert (where == "tail_mid_way" or name == "lookup") == (s0 > handover)
+    order = ("ids", "rows", "sponge", "scal", "fixed", "out", "ch_mont")
+    twin_bufs, plain_bufs = _fused_buffers(state, prover, 60)
+    before = dict(LAUNCHES)
+    t = prover.tape
+    got = ksc.fused_launch(kern, None, BN254_FR, state.stacked.clone(), prover.consts, degree,
+                           *(twin_bufs[n] for n in order), 0, num_vars)
+    assert LAUNCHES["sumcheck_fused"] - before["sumcheck_fused"] == int(s0 > handover)
+    assert LAUNCHES["sumcheck_fused_tail"] - before["sumcheck_fused_tail"] == 1
+    want = ksc.fused_rounds_plain(BN254_FR, state.stacked.clone(), prover.instrs, prover.consts,
+                                  t.num_regs, t.out_reg, degree,
+                                  *(plain_bufs[n] for n in order), 0, num_vars)
+    assert torch.equal(got, want)
+    for n in order:
+        assert torch.equal(twin_bufs[n], plain_bufs[n]), n
+    # the message at t = 1..d (t = 0 is the claimed sum less t = 1's)
+    rows = limb.to_ints(twin_bufs["out"])
+    for r in range(num_vars):
+        row = rows[r * (degree + 2): (r + 1) * (degree + 2)]
+        assert [int(v) for v in rprover.prove_round(rstate).values][1:] == row[1: degree + 1], r
+        rstate.next_round(RefFp(5, REF_FR), RefFp(row[degree + 1], REF_FR))
+
+
+def test_ptxas_lines_name_each_build_of_the_grid_kernel():
+    """The grid kernel is built capped and uncapped: each build's ptxas lines
+    carry its name, the tail's and the out-of-line helpers' theirs."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN2pk22sc_fused_kernel_cappedINS_4TapeEEEvNS_7ScFusedE' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN2pk22sc_fused_kernel_cappedINS_4TapeEEEvNS_7ScFusedE",
+        "    16 bytes stack frame, 20 bytes spill stores, 24 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 8448 bytes smem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN2pk15sc_fused_kernelINS_4TapeEEEvNS_7ScFusedE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN2pk15sc_fused_kernelINS_4TapeEEEvNS_7ScFusedE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 180 registers, used 1 barriers, 8448 bytes smem",
+        "ptxas info    : Function properties for _ZN2pk6sc_mulINS_2FrEEENS_2FeES2_S2_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function "
+        "'_ZN2pk14sc_tail_kernelINS_4TapeEEEvNS_7ScFusedE' for 'sm_90a'",
+        "ptxas info    : Used 230 registers, used 1 barriers, 7680 bytes smem",
+    ])
+    grid = sumcheck_gen._kernel_ptxas(log, "sc_fused_kernel")
+    assert "sc_fused_kernel_capped: 16 bytes stack frame, 20 bytes spill stores" in grid
+    assert "sc_fused_kernel: 0 bytes stack frame, 0 bytes spill stores" in grid
+    assert "sc_fused_kernel: Used 180 registers" in grid and "sc_mul: 0 bytes" in grid
+    assert "sc_tail_kernel" not in grid
+    assert sumcheck_gen._kernel_ptxas(log, "sc_tail_kernel").endswith(
+        "sc_tail_kernel: Used 230 registers, used 1 barriers, 7680 bytes smem")

@@ -2093,7 +2093,7 @@ def phase8_folding(torch, k, launches, reset_launches, shapes):
     built = len(sumcheck_gen.BUILDS) - kernels_before
     log(f"[fold k={k}] folds {[round(v, 3) for v in fold_ms]} ms; decider with the last NARK "
         f"{decider_ms:.3f} ms, {len(proof)} bytes; peak device memory {peak / 2**30:.2f} GiB")
-    spans = [(n, d, s) for n, d, s in timer.trace() if d <= 1]
+    spans = [(n, d, s) for n, d, s in timer.phase_trace() if d <= 1]
     for name, depth, sec in spans:
         log(f"[fold k={k}] span {'  ' * depth}{name}: {sec * 1e3:.1f} ms")
     top = sum(s for _, d, s in spans if d == 0)
@@ -2210,7 +2210,7 @@ def prove_and_check(torch, tag, backend, pp, vp, circuit, spec, launches, reset_
     proof = tr.into_proof()
     log(f"[{tag}] prove {prove_s:.3f}s, {len(proof)} bytes, peak device memory "
         f"{peak / 2**30:.2f} GiB")
-    spans = [(n, d, sec) for n, d, sec in timer.trace() if d <= 2]
+    spans = [(n, d, sec) for n, d, sec in timer.phase_trace() if d <= 2]
     for name, depth, sec in spans:
         log(f"[{tag}] span {'  ' * depth}{name}: {sec * 1e3:.1f} ms")
     top = sum(sec for _, d, sec in spans if d == 0)
@@ -2308,7 +2308,7 @@ def phase9_univariate(torch, k, launches, reset_launches, shapes):
     torch.cuda.synchronize()
     pre_s = time.time() - t0
     timer.set_enabled(False)
-    spans = ", ".join(f"{n} {sec * 1e3:.1f} ms" for n, d, sec in timer.trace() if d == 0)
+    spans = ", ".join(f"{n} {sec * 1e3:.1f} ms" for n, d, sec in timer.phase_trace() if d == 0)
     log(f"[{tag}] setup {setup_s:.2f}s ({param.powers_of_s_g1.shape[0]} powers), preprocess "
         f"{pre_s:.2f}s ({spans})")
     del param

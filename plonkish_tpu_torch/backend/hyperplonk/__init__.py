@@ -132,6 +132,11 @@ class HyperPlonk:
         circuit: PlonkishCircuit,
         transcript: Keccak256Transcript,
     ) -> None:
+        # the request's root span: the phases below nest under it
+        with span(f"hyperplonk_prove-{pp.num_vars}", request=True):
+            self._prove(pp, circuit, transcript)
+
+    def _prove(self, pp, circuit, transcript) -> None:
         spec = pp.spec
         device = self.pcs.device
         instances = circuit.instances()

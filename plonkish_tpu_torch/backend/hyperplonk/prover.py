@@ -30,6 +30,7 @@ from ...piop.evaluator import evaluate_on_hypercube, identity_digits
 from ...piop.sum_check import ClassicSumCheck, VirtualPolynomial
 from ...poly.multilinear import MLPoly, evaluate_for_rotations
 from ...utils.bh import BooleanHypercube
+from ...utils import timer
 from ...utils.expression import Expression
 from ...utils.transcript import Keccak256Transcript
 from ..pcs_api import Evaluation
@@ -96,12 +97,15 @@ def lookup_m_polys(compressed_polys: List[Tuple[MLPoly, MLPoly]]) -> List[MLPoly
         _, inv = torch.unique(both, dim=0, return_inverse=True)
         tbl_ids, inp_ids = inv[:n], inv[n:]
         num_ids = int(inv.max().item()) + 1
+        timer.device_read(inv)
         first_row = torch.full((num_ids,), n, dtype=torch.int64, device=device)
         first_row.scatter_reduce_(
             0, tbl_ids, torch.arange(n, device=device), reduce="amin"
         )
         counts = torch.bincount(inp_ids, minlength=num_ids)
-        if bool(((first_row == n) & (counts > 0)).any()):
+        missing = bool(((first_row == n) & (counts > 0)).any())
+        timer.device_read(counts)
+        if missing:
             raise ValueError("Invalid lookup input")
         hit = counts > 0
         m = torch.zeros(n, dtype=torch.int64, device=device)

@@ -38,6 +38,7 @@ from ..pcs.univariate_kzg import UnivariateKzg
 from ..poly.ntt import coset_powers, d_coset_scale, d_ntt, root_of_unity
 from ..poly.univariate import DUniPoly, powers_tensor
 from ..utils.bh import BooleanHypercube
+from ..utils import timer
 from ..utils.timer import span
 from ..utils.transcript import Keccak256Transcript
 
@@ -253,7 +254,9 @@ class UnivariatePlonk:
                 t_coeffs = self._quotient(pp, instances, wire_coeffs, z_coeffs,
                                           beta, gamma, alpha)
                 # degree check on the device: one boolean read
-                if bool((t_coeffs[:, 3 * n:] != 0).any()):
+                overflow = bool((t_coeffs[:, 3 * n:] != 0).any())
+                timer.device_read(t_coeffs)
+                if overflow:
                     raise AssertionError(
                         "quotient degree overflow — constraint system unsatisfied?")
                 t_chunks = [t_coeffs[:, i * n:(i + 1) * n] for i in range(3)]

@@ -857,6 +857,10 @@ def _bench_hyperplonk(args, ks, device, sync, out_path) -> None:
             peak_note = f", peak device memory {peak_gib:.2f} GiB"
         # read the spans of the timed proves before anything else proves
         breakdown = timer.cost_breakdown() if args.breakdown else None
+        counters = {}
+        for rec in timer.records() if args.breakdown else ():
+            for name, n in rec.counters.items():
+                counters[name] = counters.get(name, 0) + n
         if args.profile:
             _profile_prove(args.profile, k, backend, pp, circuit, spec, device)
 
@@ -882,6 +886,9 @@ def _bench_hyperplonk(args, ks, device, sync, out_path) -> None:
             for cat, secs in breakdown.items():
                 breakdown_ms[cat] = secs / samples * 1e3
                 print(f"    {cat:14s} {secs / samples * 1e3:9.2f} ms")
+            # launches, ints_in, ints_out, device_reads (utils/timer.py)
+            print("  counters (per prove): " + ", ".join(
+                f"{name} {n / samples:.0f}" for name, n in sorted(counters.items())))
             _append_breakdown(out_path + ".breakdown.json", k, breakdown_ms)
 
 

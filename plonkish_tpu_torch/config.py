@@ -3,7 +3,7 @@ environment at each call, under the JAX package's names and defaults:
 
 | Env var                 | Values | Meaning                                     |
 |-------------------------|--------|---------------------------------------------|
-| PLONKISH_TPU_TIMER      | 0/1    | timing spans (utils/timer.py reads it once, at import, as the reference's timer does) |
+| PLONKISH_TPU_TIMER      | 0/1    | timing spans (utils/timer.py reads it once, at import, as the reference's timer does): each span's (name, depth, seconds), and its record (id, parent, root, host start and end, the counters launches, ints_in, ints_out, device_reads; thread CPU time, faults and context switches of a span that synchronises; the card's stretch of a stage that does not synchronise, from the request's first event) |
 | PLONKISH_TPU_SANITY     | 0/1    | the reference's `sanity-check` feature: O(2^k) self-checks in the provers |
 | PLONKISH_TPU_DEVICE_FS  | 1/0    | the sum-check's transcript sponge on the card (piop/fiat_shamir.py) |
 | PLONKISH_TPU_FUSED_ROUNDS | 1/0  | under the device transcript, an Evaluations sum-check's rounds from the handover on as one launch of K7 (kernels/sumcheck.py fused_rounds) |

@@ -24,6 +24,7 @@ import torch
 
 from ..fields import limb
 from ..fields.host import Fp
+from ..utils import timer
 from .host import AffinePoint
 from .specs import CurveSpec
 
@@ -82,9 +83,9 @@ def _doubled(curve: CurveSpec, p, dbl):
     Computing the doubling every time instead made the KZG setup at k = 20
     about 50 % slower on an H100 (PERF.md): random batches almost never
     need it."""
-    if bool(dbl.any()):
-        return jdbl(curve, p)
-    return p
+    needed = bool(dbl.any())
+    timer.device_read(dbl)
+    return jdbl(curve, p) if needed else p
 
 
 def jmadd(curve: CurveSpec, p, x2, y2, inf2):

@@ -32,6 +32,7 @@ from .. import parallel
 from ..fields import limb
 from ..fields.host import Fp
 from ..kernels import msm as kmsm
+from ..utils import timer
 from . import device as cdev
 from .host import AffinePoint, msm_host
 from .specs import CurveSpec
@@ -97,9 +98,13 @@ def msm_jacobian(curve: CurveSpec, scalars: torch.Tensor, bases: torch.Tensor) -
         return limb.zeros((3,), scalars.device)
     c = window_size(n)
     w = num_windows(curve, c)
-    keys, src, nb = msm_entries(scalars, c, w)
-    buckets = kmsm.bucket_sums(curve, bases.contiguous(), keys, src, w * nb)
-    return kmsm.window_sums(curve, buckets.reshape(w, nb, 3, 8), c)
+    k, dev = (n - 1).bit_length(), scalars.device
+    with timer.span(f"msm_recode-{k}", sync=False, device=dev):
+        keys, src, nb = msm_entries(scalars, c, w)
+    with timer.span(f"msm_bucket_sums-{k}", sync=False, device=dev):
+        buckets = kmsm.bucket_sums(curve, bases.contiguous(), keys, src, w * nb)
+    with timer.span(f"msm_window_sums-{k}", sync=False, device=dev):
+        return kmsm.window_sums(curve, buckets.reshape(w, nb, 3, 8), c)
 
 
 def variable_base_msm(
@@ -119,8 +124,11 @@ def variable_base_msm(
         from ..parallel.sharded import sharded_msm
 
         return sharded_msm(curve, mesh, scalars, bases)
-    point = msm_jacobian(curve, scalars, bases).cpu()
-    return cdev.jac_to_host(curve, point[None])[0]
+    jac = msm_jacobian(curve, scalars, bases)
+    with timer.span(f"msm_readback-{(n - 1).bit_length()}", sync=False, device=jac.device):
+        point = jac.cpu()
+        timer.device_read(jac)
+        return cdev.jac_to_host(curve, point[None])[0]
 
 
 def msm_affine(scalars: Sequence[Fp], points: Sequence[AffinePoint], device=None) -> AffinePoint:

@@ -30,6 +30,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import timer
 from .spec import FieldSpec
 
 L = 8  # 32-bit limbs per element (storage)
@@ -175,6 +176,7 @@ def d_const(spec: FieldSpec, value: int, device, mont: bool = True):
 
 def from_ints(values: Sequence[int], device="cpu") -> torch.Tensor:
     """Python ints (< 2^256) -> int32[n, 8] raw limbs (not Montgomery)."""
+    timer.count("ints_in", len(values))
     blob = b"".join(int(v).to_bytes(32, "little") for v in values)
     arr = np.frombuffer(blob, dtype="<i4").reshape(len(values), L)
     return torch.from_numpy(arr.copy()).to(device)
@@ -183,6 +185,8 @@ def from_ints(values: Sequence[int], device="cpu") -> torch.Tensor:
 def to_ints(x: torch.Tensor) -> list:
     """int32[..., 8] raw limbs -> flat list of Python ints."""
     blob = x.detach().to("cpu").contiguous().numpy().astype("<i4").tobytes()
+    timer.device_read(x)
+    timer.count("ints_out", len(blob) // 32)
     return [
         int.from_bytes(blob[32 * i: 32 * i + 32], "little")
         for i in range(len(blob) // 32)

@@ -27,6 +27,7 @@ from ..curves.host import AffinePoint
 from ..curves.specs import CurveSpec
 from ..fields import limb
 from ..fields.spec import FieldSpec
+from ..utils import timer
 from . import Block, Mesh, row_block, start_group
 
 
@@ -57,7 +58,9 @@ def _wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """`t` where the backend reads it: the host for gloo, the rank's card for
     NCCL."""
     if mesh.backend == "gloo":
-        return t.cpu().contiguous()
+        out = t.cpu().contiguous()
+        timer.device_read(t)
+        return out
     return t.to(mesh.device).contiguous()
 
 
@@ -162,7 +165,9 @@ def sharded_msm(curve: CurveSpec, mesh: Mesh, scalars: torch.Tensor,
     block = _block(mesh, scalars.shape[0])
     local = msm_jacobian(curve, block.take(scalars).contiguous(),
                          block.take(bases).contiguous())
-    points = all_gather_cat(mesh, local[None], 0).cpu()  # [world, 3, 8]
+    gathered = all_gather_cat(mesh, local[None], 0)
+    points = gathered.cpu()  # [world, 3, 8]
+    timer.device_read(gathered)
     acc = AffinePoint.identity(curve)
     for p in cdev.jac_to_host(curve, points):
         acc = acc + p

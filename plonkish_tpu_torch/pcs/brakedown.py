@@ -27,7 +27,7 @@ from ..fields.spec import FieldSpec
 from ..ops.keccak_batch import keccak256_many
 from ..parallel import sharded
 from ..poly.multilinear import MLPoly, eq_xy
-from ..utils import keccak_device
+from ..utils import keccak_device, timer
 from ..utils.transcript import Keccak256Transcript
 from .additive import weighted_sum
 from .brakedown_code import BRAKEDOWN_SPEC_6, Brakedown, BrakedownSpec
@@ -100,9 +100,9 @@ class MultilinearBrakedown:
             encoded = sharded.all_gather_cat(block.mesh, code.encode(block.take(matrix)), 0)
         canon = limb.from_mont(spec, encoded)  # [num_rows, cw, 8]
         hashes, root = _merklize_device(canon, code.codeword_len)
-        return BrakedownCommitment(
-            root=root, rows=canon.cpu().numpy(), intermediate_hashes=hashes
-        )
+        rows = canon.cpu().numpy()
+        timer.device_read(canon)
+        return BrakedownCommitment(root=root, rows=rows, intermediate_hashes=hashes)
 
     def batch_commit(self, pp, polys):
         return [self.commit(pp, p) for p in polys]

@@ -30,6 +30,7 @@ from ..fields.spec import FieldSpec
 from ..kernels import ipa as kipa
 from ..ops.keccak_batch import keccak256_many
 from ..poly.multilinear import MLPoly, eq_xy
+from ..utils import timer
 from ..utils.keccak import keccak256
 from . import additive
 
@@ -116,6 +117,7 @@ def hash_to_curve_batch(curve: CurveSpec, tag: bytes, n: int, device,
         x_out[idx] = x[pick][found]
         y_out[idx] = y[pick][found]
         todo = todo[~found.cpu().numpy()]
+        timer.device_read(found)
         ctr0 += tries
     # the sign choice: y with an even canonical representative
     odd = (limb.from_mont(base, y_out)[:, 0] & 1).bool()

@@ -26,6 +26,7 @@ from ..curves.specs import BN254_G1, CurveSpec
 from ..fields import limb
 from ..fields.host import Fp
 from ..poly.multilinear import MLPoly
+from ..utils.timer import span
 from ..utils.transcript import Keccak256Transcript
 from . import additive
 
@@ -115,8 +116,13 @@ class MultilinearKzg:
 
     # ----------------------------------------------------------------- commit
     def commit(self, pp: MultilinearKzgProverParams, poly: MLPoly) -> AffinePoint:
-        scalars = limb.from_mont(self.field_spec, poly.evals)
-        return variable_base_msm(self.curve, scalars, pp.eq(poly.num_vars))
+        k, dev = poly.num_vars, poly.evals.device
+        # stages, not spans that synchronise: a commit's time on the card is
+        # read from their events, and a sync would move it
+        with span(f"kzg_commit-{k}", sync=False, device=dev, request=True):
+            with span(f"kzg_from_mont-{k}", sync=False, device=dev):
+                scalars = limb.from_mont(self.field_spec, poly.evals)
+            return variable_base_msm(self.curve, scalars, pp.eq(k))
 
     def batch_commit(self, pp, polys):
         return [self.commit(pp, p) for p in polys]

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from . import timer
+
 RATE_BYTES = 136
 RATE_LANES = RATE_BYTES // 8
 M32 = 0xFFFFFFFF
@@ -135,4 +137,5 @@ def digests_to_bytes(words: torch.Tensor):
     import numpy as np
 
     arr = words.T.contiguous().cpu().numpy().astype("<u4")
+    timer.device_read(words)
     return [row.tobytes() for row in arr]

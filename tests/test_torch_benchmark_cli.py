@@ -49,6 +49,7 @@ def test_cli_hyperplonk(circuit, capsys):
     assert benchmark.srs_cache_path(5, 0).startswith("target/srs_cache_torch/kzg_k5_seed0_")
     out = capsys.readouterr().out
     assert "k=5 pcs=kzg device=cpu: prove" in out and "cost breakdown" in out
+    assert "counters (per prove): " in out and "ints_in" in out  # the tracer's counters
     # a second run reads the SRS back from the cache and appends a row
     benchmark.main(
         ["--device", "cpu", "--system", "hyperplonk", "--circuit", circuit,

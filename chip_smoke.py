@@ -46,7 +46,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    the mont_mul chain probe K5 with its three multipliers at 2^16 elements,
    and the PTX product (csrc/field_ptx.cuh, the tape's products in K3 and
    K7) against fe_mul over Fr and Fq on 2^20 random pairs, the edge pairs
-   and pairs that need the final subtraction; K6
+   and pairs that need the final subtraction, the Montgomery conversion
+   (csrc/convert.cu, limb.from_mont and limb.to_mont) in both directions
+   over Fr and Fq at 2^20, timed beside its byte bound; K6
    over Fr and Fq at degrees 1, 2, 3, 5, 9 and 32 from sponges with 0, 32,
    80, 120 and 128 bytes pending (0 and 128 at degree 32), and ten chained
    rounds with the Coefficients round beside each); K7 over every round of
@@ -1014,6 +1016,7 @@ def phase2_kernels(torch, structures):
     log(f"[kernels] K5 mont_mul chain, {a.shape[0]} elements with edge rows, 16 deep, "
         f"{', '.join(kprobe.VARIANTS)}: 0 mismatches")
     check_ptx_product(torch, gen)
+    check_field_convert(torch, gen)
 
 
 def final_subtraction_pairs(spec, count, rng):
@@ -1071,6 +1074,51 @@ def check_ptx_product(torch, gen):
     log(f"[kernels] PTX product, sum and difference (field_ptx.cuh) against fe_mul, fe_add, "
         f"fe_sub and fe_neg over Fr and Fq: 2^20 pairs each, 16 edge pairs and 64 needing the "
         f"product's final subtraction among them: 0 mismatches ({time.time() - t0:.1f}s)")
+
+
+def check_field_convert(torch, gen):
+    """limb.from_mont and limb.to_mont on the card (csrc/convert.cu) against
+    the plain product by their constant, in Fr and Fq at 2^20: random values
+    below p with 0, 1, p - 1, R mod p and R^2 mod p first, to_mont also on
+    values up to 2^256 - 1; the edge rows against the host's integers; then
+    from_mont timed beside its byte bound (roofline.convert_work)."""
+    from plonkish_tpu_torch import roofline
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES
+
+    t0 = time.time()
+    n = 1 << 20
+    for spec in (BN254_FR, BN254_FQ):
+        x = rand_field(torch, spec, n, gen)
+        edge = [0, 1, spec.p - 1, (1 << 256) % spec.p, (1 << 512) % spec.p]
+        x[: len(edge)] = limb.from_ints(edge, "cuda")
+        wide = x.clone()
+        wide[:3] = limb.from_ints([(1 << 256) - 1, spec.p, 2 * spec.p + 1], "cuda")
+        for name, convert, k, inp in (("from_mont", limb.from_mont, 1, x),
+                                      ("to_mont", limb.to_mont, (1 << 512) % spec.p, wide)):
+            before = LAUNCHES["field_convert"]
+            got = convert(spec, inp)
+            if LAUNCHES["field_convert"] != before + 1:
+                fail(f"limb.{name} over {spec.name} did not launch csrc/convert.cu once")
+            want = limb.mont_mul(spec, inp, limb.from_ints([k], "cuda")[0])
+            if not torch.equal(got, want):
+                bad = int((got != want).any(dim=1).sum())
+                fail(f"the conversion {name} differs from its plain version over {spec.name} "
+                     f"on {bad} of {n} elements")
+            vals = limb.to_ints(inp[: len(edge)].cpu())
+            if limb.to_ints(got[: len(edge)].cpu()) != [v * k * pow(1 << 256, -1, spec.p) % spec.p
+                                                       for v in vals]:
+                fail(f"the conversion {name} differs from the host's integers over {spec.name}")
+    x = rand_field(torch, BN254_FR, n, gen)
+    ms = cuda_ms(torch, lambda: limb.from_mont(BN254_FR, x), 50)
+    one = limb.from_ints([1], "cuda")[0]
+    plain_ms = cuda_ms(torch, lambda: limb.mont_mul(BN254_FR, x, one), 3)
+    b_ms, b_by, _ = roofline.bound_ms(*roofline.convert_work(n))
+    log(f"[kernels] the Montgomery conversion (csrc/convert.cu) against the plain product, "
+        f"both directions over Fr and Fq at 2^20 with edge rows: 0 mismatches; from_mont at "
+        f"2^20 {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
+        f"{100 * b_ms / ms:.1f} % of it) ({time.time() - t0:.1f}s)")
 
 
 def start_native_build():
@@ -1461,6 +1509,11 @@ def phase5_timing(torch, shapes, paths):
     k4_plain_ms, k4_plain = timed_once(torch, lambda: ksc.fold_plain(BN254_FR, state.stacked, ch))
     k4_err = 0 if torch.equal(ksc.fold_cuda(BN254_FR, state.stacked, ch), k4_plain) else 1
     del k4_plain
+    one = limb.from_ints([1], "cuda")[0]
+    cv_ms = cuda_ms(torch, lambda: limb.from_mont(BN254_FR, scalars), 20)
+    cv_plain_ms, cv_plain = timed_once(torch, lambda: limb.mont_mul(BN254_FR, scalars, one))
+    cv_err = 0 if torch.equal(limb.from_mont(BN254_FR, scalars), cv_plain) else 1
+    del cv_plain
     t_count, rows, _ = state.stacked.shape
     pairs = rows // 2
     n_mul = int((prover.instrs[:, 0] == OP_MUL).sum())
@@ -1570,6 +1623,9 @@ def phase5_timing(torch, shapes, paths):
         ("mont_mul_chain", "harness", "plonkish_tpu_torch/csrc/probe.cu",
          "scripts/validate_pallas_tpu.py:253", k5_ms, k5_plain_ms, k5_err,
          roofline.chain_work(pn, pchain)),
+        ("field_convert", "kzg", "plonkish_tpu_torch/csrc/convert.cu",
+         "plonkish_tpu_torch/fields/limb.py from_mont (plain torch)", cv_ms, cv_plain_ms,
+         cv_err, roofline.convert_work(n)),
     ):
         if err:
             fail(f"{name} differs from its plain version at the k={k} shapes")

@@ -1,13 +1,14 @@
 // Host build of the kernels' arithmetic and per-thread bodies, for the CPU
 // tests only (tests/test_torch_csrc_cpu.py, tests/test_torch_grumpkin.py):
 // g++ compiles field.cuh, curve.cuh and the __host__ __device__ parts of
-// msm.cu, sumcheck.cu, probe.cu, ipa.cu and fiat_shamir.cu, and each function below runs a
+// msm.cu, sumcheck.cu, probe.cu, ipa.cu, fiat_shamir.cu and convert.cu, and each function below runs a
 // kernel's threads one after another.  No entry point of the package loads this library.  K3's
 // generated kernels have their own host builds (kernels/sumcheck_gen.py).
 #include <stdint.h>
 
 #include <vector>
 
+#include "convert.cu"
 #include "fiat_shamir.cu"
 #include "ipa.cu"
 #include "msm.cu"
@@ -53,6 +54,15 @@ static int chain_dispatch(const uint32_t* a, const uint32_t* b, uint32_t* out,
     case 4: chain_threads<F, V, 4>(a, b, out, n, chain, stride); return 0;
     default: return -1;
   }
+}
+
+// The conversion: every thread of the launch, one after another.
+template <class F>
+static void convert_threads(const uint32_t* in, uint32_t* out, int64_t n, const Fe& k,
+                            int64_t stride) {
+  for (int64_t tid = 0; tid < stride; tid++)
+    for (int64_t base = tid; base < n; base += stride * CONVERT_PER_THREAD)
+      convert_pass<F>(in, out, n, base, stride, k);
 }
 
 template <class F>
@@ -151,6 +161,21 @@ int twin_mont_mul_chain(const uint32_t* a, const uint32_t* b, uint32_t* out,
   if (field == 1 && variant == 2)
     return chain_dispatch<Fq, 2>(a, b, out, n, chain, per_thread, stride);
   return -1;
+}
+
+// The conversion's launch (csrc/convert.cu field_convert), same arguments.
+int twin_field_convert(const uint32_t* in, uint32_t* out, long long n, const uint32_t* k,
+                       int field, int blocks, int threads, void* stream) {
+  (void)stream;
+  if (n < 0 || blocks <= 0 || threads <= 0) return -1;
+  int64_t stride = (int64_t)blocks * threads;
+  if (field == 0)
+    convert_threads<Fr>(in, out, n, fe_load(k), stride);
+  else if (field == 1)
+    convert_threads<Fq>(in, out, n, fe_load(k), stride);
+  else
+    return -1;
+  return 0;
 }
 
 // field: 0 = Fr, 1 = Fq; op: 0 add, 1 sub, 2 mul, 3 neg, 4 mul in float32, 5 mul, 6 add

@@ -20,7 +20,9 @@ Multiplication is CIOS Montgomery over 16-bit digits; a single inversion goes
 to the host (one Python ``pow``), and batch inversion is Montgomery's trick
 over a log-depth prefix-product scan, so no loop over the 2^k elements runs
 in Python.  The same functions run on the card, where the CUDA kernels of
-``plonkish_tpu_torch.kernels`` take the hot loops.
+``plonkish_tpu_torch.kernels`` take the hot loops; ``to_mont`` and
+``from_mont`` on a CUDA tensor of BN254 Fr or Fq are one such kernel
+(``kernels/field.py``), and the plain product elsewhere.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels import FIELDS
+from ..kernels import field as kfield
 from ..utils import timer
 from .spec import FieldSpec
 
@@ -129,7 +133,7 @@ def d_mul(a, b, c):
     """CIOS Montgomery product a*b*R^-1 mod p over 16-bit digits.
 
     b may be a [16, 1] constant column."""
-    n = max(a.shape[1], b.shape[1])
+    n = torch.broadcast_shapes(a.shape[1:], b.shape[1:])[0]  # 0 where a is empty
     t = torch.zeros((2 * D + 1, n), dtype=torch.int64, device=a.device)
     p, n0 = c["p"], c["n0"]
     a = a.expand(D, n)
@@ -243,12 +247,21 @@ def is_zero(a):
     return (a == 0).all(dim=-1)
 
 
+def _convert(spec, a, const: str, k: int):
+    """a * k * R^-1 mod p: on a CUDA tensor of a field the kernels are built
+    for, one launch of csrc/convert.cu; else the plain product by the
+    constant column `const` (any a below 2^256 comes out reduced)."""
+    if a.device.type == "cuda" and spec.p in FIELDS:
+        return kfield.field_convert_cuda(spec, a, k)
+    return mont_mul(spec, a, pack(_consts(spec, a.device)[const])[0])
+
+
 def to_mont(spec, a):
-    return mont_mul(spec, a, pack(_consts(spec, a.device)["r2"])[0])
+    return _convert(spec, a, "r2", spec.r2_mod_p)
 
 
 def from_mont(spec, a):
-    return mont_mul(spec, a, pack(_consts(spec, a.device)["raw1"])[0])
+    return _convert(spec, a, "raw1", 1)
 
 
 def from_canonical_ints(spec, values, device="cpu"):

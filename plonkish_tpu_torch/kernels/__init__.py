@@ -8,7 +8,7 @@ the kernels.
 
 ``FIELDS`` and ``CURVES`` are the one table of what the kernels are built
 for: the id that every entry point takes for a field (csrc/sumcheck.cu,
-csrc/probe.cu, csrc/cpu_twin.cpp) or a curve (csrc/curve.cuh's CURVE_*), and
+csrc/probe.cu, csrc/convert.cu, csrc/cpu_twin.cpp) or a curve (csrc/curve.cuh's CURVE_*), and
 the field's struct in csrc/field.cuh.
 """
 
@@ -30,6 +30,7 @@ LAUNCHES = {
     "fs_coeff_message": 0,
     "sumcheck_fused": 0,
     "sumcheck_fused_tail": 0,
+    "field_convert": 0,
 }
 
 

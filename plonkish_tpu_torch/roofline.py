@@ -20,7 +20,7 @@ tape-interpreting round kernel (K3), the fold (K4) and the round message
 (K6, whose Keccak-f logic operations are counted beside its products, and
 whose least time is its shortest dependent chain, ``fs_latency_ms``), the
 fused rounds (K7, ``fused_bound_ms``: K3's or K4's bound and K6's chain a
-round); the
+round), the conversion out of or into Montgomery form (``convert_work``); the
 IPA base fold's is the work of the design it runs (``base_fold_work``, the sum
 of its two kernels' counts), which is not shown to be the least its function
 needs.
@@ -226,6 +226,13 @@ def fused_bound_ms(tables: int, pairs: int, rounds: int, degree: int, tape_muls:
         else:
             t_ops += ms
     return total, "bytes" if t_bytes > t_ops else "operations"
+
+
+def convert_work(n: int) -> Tuple[int, int]:
+    """The conversion into or out of Montgomery form (csrc/convert.cu): one
+    product per element; each element read once and written once.  Bound by
+    its bytes, about 0.020 ms at 2^20."""
+    return n * FE_MUL_IMAD, n * 2 * FE_BYTES
 
 
 def chain_work(n: int, chain: int) -> Tuple[int, int]:

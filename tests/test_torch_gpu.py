@@ -1,6 +1,7 @@
-"""Kernels K1-K5 on a CUDA card against their plain versions, and a golden
-proof produced on the card.  Marked ``gpu``: without a card each test skips
-(decided inside the test, never at import).  On the card run them with
+"""Kernels K1-K5 and the Montgomery conversion on a CUDA card against their
+plain versions, and a golden proof produced on the card.  Marked ``gpu``:
+without a card each test skips (decided inside the test, never at import).
+On the card run them with
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -523,3 +524,71 @@ def test_two_ranks_share_the_card(cuda):
         assert proof == want
         assert all(launches[name] > 0 for name in prover_kernels), launches
         assert taken["msm"] > 0 and taken["sum_check"] == 2 and taken["permutation_z"] == 1
+
+
+def _rand_limbs(spec, n, gen, device):
+    """n random values below p as int32[n, 8], with 0, 1, p - 1, R mod p and
+    R^2 mod p first."""
+    from plonkish_tpu_torch.fields import limb
+
+    x = torch.randint(-(1 << 31), 1 << 31, (n, 8), dtype=torch.int32, generator=gen, device=device)
+    x[:, 7] = torch.randint(0, spec.p >> 224, (n,), dtype=torch.int32, generator=gen, device=device)
+    edge = [0, 1, spec.p - 1, spec.r_mod_p, spec.r2_mod_p]
+    x[: len(edge)] = limb.from_ints(edge, device)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_field_convert_kernel_matches_plain(cuda, field):
+    """limb.from_mont and limb.to_mont at 2^20 on the card: one launch each of
+    csrc/convert.cu, equal to the plain product by the constant (1 or R^2)."""
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES
+
+    spec = {"fr": BN254_FR, "fq": BN254_FQ}[field]
+    x = _rand_limbs(spec, 1 << 20, torch.Generator(device=cuda).manual_seed(12), cuda)
+    for convert, k in ((limb.from_mont, 1), (limb.to_mont, spec.r2_mod_p)):
+        before = LAUNCHES["field_convert"]
+        got = convert(spec, x)
+        assert LAUNCHES["field_convert"] == before + 1
+        assert torch.equal(got, limb.mont_mul(spec, x, limb.from_ints([k], cuda)[0]))
+    view = x[:4096].reshape(64, 64, 8).transpose(0, 1)
+    assert torch.equal(limb.to_mont(spec, limb.from_mont(spec, view)), view)
+
+
+@pytest.mark.gpu
+def test_commit_launches_the_conversion_once(cuda):
+    from plonkish_tpu_torch.curves.msm import variable_base_msm
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES
+    from plonkish_tpu_torch.pcs.kzg import MultilinearKzg
+    from plonkish_tpu_torch.poly.multilinear import MLPoly
+
+    k = 10
+    pcs = MultilinearKzg(device=cuda)
+    pp, _ = pcs.trim(pcs.setup(1 << k, 1, random.Random(0)), 1 << k, 1)
+    evals = _rand_limbs(BN254_FR, 1 << k, torch.Generator(device=cuda).manual_seed(13), cuda)
+    before = LAUNCHES["field_convert"]
+    got = pcs.commit(pp, MLPoly(BN254_FR, evals))
+    assert LAUNCHES["field_convert"] == before + 1
+    plain = limb.mont_mul(BN254_FR, evals, limb.from_ints([1], cuda)[0])
+    assert got == variable_base_msm(pcs.curve, plain, pp.eq(k))
+
+
+@pytest.mark.gpu
+def test_other_fields_keep_the_plain_conversion_on_the_card(cuda):
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BLS12_381_FR, PALLAS_BASE
+    from plonkish_tpu_torch.kernels import LAUNCHES
+
+    rng = random.Random(14)
+    for spec in (BLS12_381_FR, PALLAS_BASE):
+        vals = [0, 1, spec.p - 1] + [rng.randrange(spec.p) for _ in range(61)]
+        x = limb.from_ints(vals, cuda)
+        before = LAUNCHES["field_convert"]
+        assert limb.to_ints(limb.to_mont(spec, x)) == [spec.to_mont(v) for v in vals]
+        assert limb.to_ints(limb.from_mont(spec, x)) == [spec.from_mont(v) for v in vals]
+        assert LAUNCHES["field_convert"] == before

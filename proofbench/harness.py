@@ -84,6 +84,7 @@ class Context:
     traced: int  # the requests the profiler recorded, from the first
     device: Optional[tracing.DeviceTrace]
     profiled: Optional[Tuple[float, float]]
+    gc_s: float  # the interpreter's garbage collections in the window, all generations
 
     @property
     def count(self) -> int:
@@ -202,7 +203,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device=None,
                   peak,
                   list(spans.timed) if spans is not None else [],
                   min(traffic.traced_requests, len(requests)) if trace else 0,
-                  device_trace, profiled)
+                  device_trace, profiled, sum(collections.seconds))
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in metrics_of(spec, workload, kind):

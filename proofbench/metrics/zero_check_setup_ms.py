@@ -1,7 +1,14 @@
-"""zero_check_setup_ms: milliseconds a prove spends in the zero-check outside
-its sum-check rounds (the tables, the eq polynomial, the tape): the self
-time of the span zero_check of plonkish_tpu_torch's timer, its duration
-less its children's, over the proves the profiler did not record."""
+"""zero_check_setup_ms: milliseconds a prove spends in the span zero_check of
+plonkish_tpu_torch's timer outside its child sum-check span
+(sum_check_prove-<k>-<degree>): the span's self time, its duration less its
+children's, over the proves the profiler did not record.
+
+Despite the name, that is not the zero-check's set-up: the tables, the eq
+polynomial and the tape are built inside the child span
+(piop/sum_check.py:657).  It is the work after the sum-check: pcs_query, the
+rotated queries' evaluations and their writing to the transcript
+(backend/hyperplonk/prover.py:254-271).  Not declared: reading the set-up
+needs a span around it in the program."""
 
 from proofbench import spans
 

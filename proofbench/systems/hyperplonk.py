@@ -66,6 +66,7 @@ class System:
                     cols[2][3] = (cols[2][3] + 1) % BN254_R
                 self.circuits.append(MockCircuit([fps(instances)], [fps(c) for c in cols]))
             t = self._phase("program_inputs", t)
+            gc.freeze()  # the pool is the benchmark's, not the program's: no full pass walks it
         pcs = MultilinearKzg(device=device)
         self.backend = HyperPlonk(pcs)
         param = srs.load_or_setup(cache_dir, k, cfg["srs_seed"], pcs,
@@ -107,6 +108,7 @@ class System:
 
     def release(self) -> None:
         self.pp = self.circuits = self.backend = None
+        gc.unfreeze()
 
     def check(self, answers: Dict[int, bytes], requests: List) -> List[tuple]:
         """(name, value, limit) of each number compared."""

@@ -22,35 +22,6 @@ REPO = harness.REPO
 PROVE, COMMIT = "hyperplonk_kzg_vanilla_k20.prove", "mlkzg_bn254_k20.commit"
 SEED = 2**31 + 1234567  # the driver's seeds are large
 
-# The prove cell is not in BENCHMARK.json yet (PERF.md, Open questions): its
-# entries, as a later change would add them.
-PROVE_ENTRIES = {
-    "configs": [{"name": "hyperplonk_kzg_vanilla_k20", "source": "proof_system.rs",
-                 "file": "proofbench/configs/hyperplonk_kzg_vanilla_k20.json", "reduced": [],
-                 "why": "HyperPlonk over multilinear KZG"}],
-    "workloads": [{"name": PROVE, "config": "hyperplonk_kzg_vanilla_k20", "traffic": "prove",
-                   "chips": 1, "why": "one prover, closed loop"}],
-    "end_to_end": [{"name": "prove_s", "unit": "s", "better": "lower", "bound": 0.25,
-                    "source": "host_clock", "workloads": [PROVE]}],
-    "per_layer": [{"name": name, "unit": unit, "better": "lower", "source": source,
-                   "layer": "layer", "moves": "prove_s", "workloads": [PROVE]}
-                  for name, unit, source in [
-                      ("witness_ms", "ms", "program_span"), ("permutation_ms", "ms", "program_span"),
-                      ("zero_check_ms", "ms", "program_span"), ("batch_open_ms", "ms", "program_span"),
-                      ("device_idle_pct.prove", "%", "device_trace")]],
-}
-
-
-@pytest.fixture(scope="module")
-def spec_path(tmp_path_factory):
-    spec = harness.load_spec()
-    for key, entries in PROVE_ENTRIES.items():
-        spec[key] += entries
-    path = tmp_path_factory.mktemp("spec") / "BENCHMARK.json"
-    path.write_text(json.dumps(spec))
-    return str(path)
-
-
 def run(workload, tmp_path, trace=False, fault=None, k=4, seconds=0.2, spec_path=None, **kw):
     return harness.run(workload, SEED, seconds, trace, device="cpu", config_overrides={"k": k},
                        cache_dir=str(tmp_path / "cache"), fault=fault, spec_path=spec_path, **kw)
@@ -73,14 +44,62 @@ def test_prove_traced_reads_every_span_metric(tmp_path, spec_path):
     assert result["correct"] and result["failed"] == 0 and result["attempted"] >= 1
     assert result["checks"]["proofs_rejected"] == {"value": 0, "limit": 0}
     # no card: the device-trace readers find nothing to read and stay silent
-    shape(result, ["witness_ms", "permutation_ms", "zero_check_ms", "batch_open_ms"])
-    assert all(m["value"] > 0 for m in result["metrics"].values())
+    spans = ["witness_ms", "permutation_ms", "zero_check_ms", "batch_open_ms",
+             "batch_open_sum_check_ms"]
+    shape(result, spans + ["prove_offcpu_ms", "prove_gc_ms"])
+    assert all(result["metrics"][name]["value"] > 0 for name in spans)
 
 
 def test_prove_untraced_reads_end_to_end_metrics(tmp_path, spec_path):
     result = run(PROVE, tmp_path, spec_path=spec_path)
     assert result["correct"]
     shape(result, ["prove_s", "setup_s"])
+
+
+# What a short run on the CPU cannot read beside the profiler's trace of the
+# card: the card's allocator, the commit stages' stretches on the card, and a
+# commit tail, which needs 20 commits past the 40 the profiler records.
+SILENT_ON_CPU = {"peak_mem_gib", "from_mont_ms", "msm_recode_ms", "msm_bucket_ms",
+                 "msm_window_ms", "commit_gap_ms", "commit_p95_ms"}
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("workload", [PROVE, COMMIT])
+def test_a_cell_reports_exactly_its_declared_metrics(tmp_path, spec_path, workload, trace):
+    spec = harness.load_spec(spec_path)
+    kind = "per_layer" if trace else "end_to_end"
+    declared = {m["name"] for m in harness.metrics_of(spec, workload, kind)
+                if m["source"] != "device_trace" and m["name"] not in SILENT_ON_CPU}
+    result = run(workload, tmp_path, trace=trace, spec_path=spec_path)
+    assert result["correct"]
+    shape(result, declared)
+
+
+def test_prove_gc_ms_reads_the_harness_clock_per_prove(tmp_path, spec_path):
+    result = run(PROVE, tmp_path, trace=True, spec_path=spec_path)
+    collected = result["gc_window"]["seconds"]
+    assert sum(collected) > 0  # a prove's garbage trips the youngest generation
+    assert result["metrics"]["prove_gc_ms"]["value"] == pytest.approx(
+        1e3 * sum(collected) / result["attempted"])
+
+
+def test_the_witness_pool_is_frozen_until_release(tmp_path):
+    """The prove system hides its pool from the collector's full passes, and
+    shows it again once the run is over."""
+    import gc
+
+    from proofbench import generator
+    from proofbench.systems.hyperplonk import System
+
+    before = gc.get_freeze_count()
+    with open(os.path.join(REPO, "proofbench/configs/hyperplonk_kzg_vanilla_k20.json")) as f:
+        cfg = dict(json.load(f), k=4)
+    system = System(cfg, generator.load("prove"), SEED, torch.device("cpu"), str(tmp_path))
+    fps = {id(x) for c in system.circuits for col in c.instances() + c.synthesize(0, [])
+           for x in col}
+    assert fps and gc.get_freeze_count() >= before + len(fps)
+    system.release()
+    assert gc.get_freeze_count() <= before
 
 
 def test_commit_untraced_reads_end_to_end_metrics(tmp_path):

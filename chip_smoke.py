@@ -48,7 +48,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    K7) against fe_mul over Fr and Fq on 2^20 random pairs, the edge pairs
    and pairs that need the final subtraction, the Montgomery conversion
    (csrc/convert.cu, limb.from_mont and limb.to_mont) in both directions
-   over Fr and Fq at 2^20, timed beside its byte bound; K6
+   over Fr and Fq at 2^20, timed beside its byte bound; Brakedown's commit
+   at k = 20, Spec 6, on its main path (MultilinearBrakedown.commit) with
+   its launches of the encode and hash kernels (csrc/brakedown.cu,
+   csrc/merkle.cu) and of the conversion counted, its rows and every node
+   of its Merkle tree against the plain versions, each kernel timed beside
+   its bound, and whole commits at k = 3, 5 and 8 against the CPU's; K6
    over Fr and Fq at degrees 1, 2, 3, 5, 9 and 32 from sponges with 0, 32,
    80, 120 and 128 bytes pending (0 and 128 at degree 32), and ten chained
    rounds with the Coefficients round beside each); K7 over every round of
@@ -314,14 +319,15 @@ def main() -> int:
         log(f"[phase {phase}] starts {time.time() - t_start:.1f}s into the script")
 
     at(2)
-    phase2_kernels(torch, structures)
+    brakedown_rows, paths_brakedown = phase2_kernels(torch, structures, reset_launches)
     phase2_round_message(torch)
     at(3)
     phase3_golden(torch, here)
     at(4)
     paths, shapes = phase4_full(torch, K_FULL, LAUNCHES, reset_launches)
+    paths["brakedown"] = paths_brakedown
     at(5)
-    kernels = phase5_timing(torch, shapes, paths)
+    kernels = phase5_timing(torch, shapes, paths) + brakedown_rows
     at(6)
     paths["harness"] = phase6_harness(K_FULL, LAUNCHES, reset_launches)
     at(7)
@@ -892,7 +898,7 @@ def check_fused_kernels(torch, cases, rng):
 
 # ------------------------------------------------------ 2 kernels vs plain
 
-def phase2_kernels(torch, structures):
+def phase2_kernels(torch, structures, reset_launches):
     from plonkish_tpu_torch.curves import device as cdev
     from plonkish_tpu_torch.curves import msm as tmsm
     from plonkish_tpu_torch.curves.specs import BN254_G1, GRUMPKIN_G1
@@ -1017,6 +1023,7 @@ def phase2_kernels(torch, structures):
         f"{', '.join(kprobe.VARIANTS)}: 0 mismatches")
     check_ptx_product(torch, gen)
     check_field_convert(torch, gen)
+    return check_brakedown_kernels(torch, gen, reset_launches)
 
 
 def final_subtraction_pairs(spec, count, rng):
@@ -1119,6 +1126,114 @@ def check_field_convert(torch, gen):
         f"both directions over Fr and Fq at 2^20 with edge rows: 0 mismatches; from_mont at "
         f"2^20 {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
         f"{100 * b_ms / ms:.1f} % of it) ({time.time() - t0:.1f}s)")
+
+
+def check_brakedown_kernels(torch, gen, reset_launches):
+    """Brakedown's commit at k = 20, Spec 6 (32 rows of 2^15, a codeword of
+    56,361) on its main path, MultilinearBrakedown.commit on the card, its
+    launches counted from 0: one of csrc/brakedown.cu a matrix of the code
+    and the base case, one conversion (csrc/convert.cu), one of
+    csrc/merkle.cu for the columns and one a tree level.  Its rows and every
+    node of its tree against the plain versions (each matrix's dot_plain,
+    keccak_device's hashes) of the same evaluations; whole commits at k = 3,
+    5 and 8 (both specs) equal to the CPU's; then each kernel timed beside
+    its bound (roofline.brakedown_encode_work, roofline.merkle_work) and its
+    plain version.  Returns the kernels line's rows of the two kernels and
+    the commit's launches, the path "brakedown" that the rows read."""
+    import numpy as np
+
+    from plonkish_tpu_torch import roofline
+    from plonkish_tpu_torch.fields import limb
+    from plonkish_tpu_torch.fields.spec import BN254_FR
+    from plonkish_tpu_torch.kernels import LAUNCHES
+    from plonkish_tpu_torch.pcs import brakedown
+    from plonkish_tpu_torch.pcs.brakedown_code import BRAKEDOWN_SPEC_6, BRAKEDOWN_SPEC_TEST
+    from plonkish_tpu_torch.poly.multilinear import MLPoly
+
+    t0 = time.time()
+    pcs = brakedown.MultilinearBrakedown(BN254_FR, BRAKEDOWN_SPEC_6, device="cuda")
+    pp = pcs.setup(1 << K_FULL, 1, random.Random(1))
+    code, rows = pp.code, pp.num_rows
+    t_code = time.time() - t0
+    evals = rand_field(torch, BN254_FR, 1 << K_FULL, gen)
+    reset_launches()
+    comm = pcs.commit(pp, MLPoly(BN254_FR, evals))
+    launches = {name: LAUNCHES[name] for name in ("brakedown_dot", "keccak_messages",
+                                                  "field_convert")}
+    depth = (code.codeword_len - 1).bit_length()
+    want = {"brakedown_dot": len(code.a) + len(code.b) + 1, "keccak_messages": 1 + depth,
+            "field_convert": 1}
+    if launches != want:
+        fail(f"Brakedown's commit at k = {K_FULL} made the launches {launches}, not {want}: "
+             "one of csrc/brakedown.cu a matrix, one conversion, one of csrc/merkle.cu for the "
+             "columns and one a level")
+    batch = evals.reshape(rows, code.row_len, limb.L)
+
+    def plain_dot(mat, x, out):
+        out.copy_(mat.dot_plain(x))
+
+    def plain_tree(canon):
+        nodes = brakedown._column_hashes_plain(canon)
+        brakedown._merkle_levels_plain(nodes)
+        return nodes
+
+    enc_plain_ms, columns = timed_once(torch, lambda: code.encode_columns(batch, dot=plain_dot))
+    canon = limb.from_mont(BN254_FR, columns)
+    del columns
+    hash_plain_ms, nodes = timed_once(torch, lambda: plain_tree(canon))
+    want_rows = canon.transpose(0, 1).cpu().numpy()
+    if not np.array_equal(comm.rows, want_rows):
+        bad = int((comm.rows != want_rows).any(axis=2).sum())
+        fail(f"Brakedown's commit at k = {K_FULL} differs from the plain encoding on {bad} "
+             "codeword elements")
+    tree = nodes.cpu().numpy().view(np.uint8)
+    if comm.root != tree[-1].tobytes() or not np.array_equal(comm.intermediate_hashes.nodes,
+                                                             tree[:-1]):
+        bad = int((comm.intermediate_hashes.nodes != tree[:-1]).any(axis=1).sum())
+        fail(f"Brakedown's commit at k = {K_FULL} differs from the plain hashes on {bad} of "
+             f"{tree.shape[0] - 1} nodes, or on the root")
+    n_nodes = tree.shape[0]
+    del want_rows, tree, nodes
+    # whole commits at small k (one row, tiny matrices) equal the CPU's
+    for k in (3, 5, 8):
+        for bspec in (BRAKEDOWN_SPEC_6, BRAKEDOWN_SPEC_TEST):
+            small = rand_field(torch, BN254_FR, 1 << k, gen)
+            comms = []
+            for dev in ("cuda", "cpu"):
+                small_pcs = brakedown.MultilinearBrakedown(BN254_FR, bspec, device=dev)
+                small_pp = small_pcs.setup(1 << k, 1, random.Random(k))
+                comms.append(small_pcs.commit(small_pp, MLPoly(BN254_FR, small.to(dev))))
+            card, host = comms
+            if (card.root != host.root or not np.array_equal(card.rows, host.rows)
+                    or list(card.intermediate_hashes) != list(host.intermediate_hashes)):
+                fail(f"a Brakedown commit at k = {k} (lambda {bspec.lambda_}) on the card differs "
+                     f"from the CPU's")
+    enc_ms = cuda_ms(torch, lambda: code.encode_columns(batch), 10)
+    hash_ms = cuda_ms(torch, lambda: brakedown._merkle_levels(brakedown._column_hashes(canon)), 10)
+    out = []
+    for name, source, replaces, ms, plain_ms, work in (
+        ("brakedown_dot", "plonkish_tpu_torch/csrc/brakedown.cu",
+         "plonkish_tpu/pcs/brakedown_code.py:159", enc_ms, enc_plain_ms,
+         roofline.brakedown_encode_work(code, rows)),
+        ("keccak_messages", "plonkish_tpu_torch/csrc/merkle.cu",
+         "plonkish_tpu/pcs/brakedown.py:341", hash_ms, hash_plain_ms,
+         roofline.merkle_work(code.codeword_len, rows)),
+    ):
+        b_ms, b_by, _ = roofline.bound_ms(*work)
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "path": "brakedown", "counter": name,
+        })
+        log(f"[kernels] {name} ({source}) at k = {K_FULL}: {ms:.3f} ms (plain {plain_ms:.1f} "
+            f"ms, bound {b_ms:.3f} ms by {b_by}, {100 * b_ms / ms:.1f} %), "
+            f"{launches[name]} launches in the commit")
+    log(f"[kernels] Brakedown's commit at k = {K_FULL} (Spec 6, {rows} x {code.row_len}, "
+        f"codeword {code.codeword_len}; the code drawn in {t_code:.1f}s) on its main path: the "
+        f"launches {launches}, its rows and {n_nodes - 1} nodes and "
+        f"root equal to the plain versions', the commits at k = 3, 5 and 8 equal to the "
+        f"CPU's ({time.time() - t0:.1f}s)")
+    return out, launches
 
 
 def start_native_build():

@@ -1,16 +1,18 @@
 // Host build of the kernels' arithmetic and per-thread bodies, for the CPU
 // tests only (tests/test_torch_csrc_cpu.py, tests/test_torch_grumpkin.py):
 // g++ compiles field.cuh, curve.cuh and the __host__ __device__ parts of
-// msm.cu, sumcheck.cu, probe.cu, ipa.cu, fiat_shamir.cu and convert.cu, and each function below runs a
-// kernel's threads one after another.  No entry point of the package loads this library.  K3's
+// msm.cu, sumcheck.cu, probe.cu, ipa.cu, fiat_shamir.cu, convert.cu, brakedown.cu and merkle.cu, and
+// each function below runs a kernel's threads one after another.  No entry point of the package loads this library.  K3's
 // generated kernels have their own host builds (kernels/sumcheck_gen.py).
 #include <stdint.h>
 
 #include <vector>
 
+#include "brakedown.cu"
 #include "convert.cu"
 #include "fiat_shamir.cu"
 #include "ipa.cu"
+#include "merkle.cu"
 #include "msm.cu"
 #include "probe.cu"
 #include "sumcheck.cu"
@@ -314,6 +316,31 @@ int twin_ipa_fold_affine(const uint32_t* jac, long long n, uint32_t* out, int cu
   (void)stream;
   if (curve != CURVE_GRUMPKIN) return -1;
   for (long long c = 0; c * FOLD_CHUNK < n; c++) fold_affine_chunk<Fr>(c, jac, n, out);
+  return 0;
+}
+
+// brakedown.cu brakedown_dot, same arguments.
+int twin_brakedown_dot(const uint32_t* in, long long in_sb, long long in_si, uint32_t* out,
+                       long long out_sb, long long out_sj, const int32_t* offsets,
+                       const int32_t* index, const uint32_t* coeff, long long m, int rows,
+                       int field, int threads, void* stream) {
+  (void)stream;
+  if (m < 0 || rows <= 0 || threads <= 0 || (field != 0 && field != 1)) return -1;
+  for (int64_t t = 0; t < m * rows; t++) {
+    if (field == 0)
+      bd_dot_item<Fr>(t, rows, in, in_sb, in_si, out, out_sb, out_sj, offsets, index, coeff);
+    else
+      bd_dot_item<Fq>(t, rows, in, in_sb, in_si, out, out_sb, out_sj, offsets, index, coeff);
+  }
+  return 0;
+}
+
+// merkle.cu keccak_messages, same arguments.
+int twin_keccak_messages(const uint64_t* words, int lanes, long long n, long long width,
+                         uint64_t* out, int threads, void* stream) {
+  (void)stream;
+  if (lanes < 0 || n < 0 || width < n || threads <= 0) return -1;
+  for (int64_t i = 0; i < width; i++) keccak_message_item(i, words, lanes, n, out);
   return 0;
 }
 

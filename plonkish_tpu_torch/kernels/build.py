@@ -28,8 +28,8 @@ from typing import Optional
 PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-CUDA_SOURCES = ("convert.cu", "fiat_shamir.cu", "ipa.cu", "msm.cu", "msm_grumpkin.cu",
-                "probe.cu", "sumcheck.cu")
+CUDA_SOURCES = ("brakedown.cu", "convert.cu", "fiat_shamir.cu", "ipa.cu", "merkle.cu", "msm.cu",
+                "msm_grumpkin.cu", "probe.cu", "sumcheck.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

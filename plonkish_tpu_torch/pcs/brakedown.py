@@ -5,16 +5,20 @@ brakedown.rs: commit = reshape evals to a [num_rows, row_len] matrix, encode
 every row on the device, hash columns, merklize; open = proximity rows +
 t0-combined row in clear + spot-checked column openings with merkle paths.
 
-The commit hashes the columns and every Merkle level on the device
-(``utils/keccak_device.py``, the reference's ``_merklize_device``); the
-verifier hashes its openings' paths with the native batch hasher
-(``ops/keccak_batch.py``).  No elliptic curves anywhere.
+On the card the commit encodes every row with csrc/brakedown.cu, leaves
+Montgomery form with csrc/convert.cu, hashes the columns and every Merkle
+level with csrc/merkle.cu, and reads the codeword and the tree back in one
+copy each, into page-locked buffers; on the CPU it takes the plain versions
+(the hashes by ``utils/keccak_device.py``, as the reference's
+``_merklize_device``).  The verifier hashes its openings' paths with the
+native batch hasher (``ops/keccak_batch.py``).  No elliptic curves anywhere.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
+from collections.abc import Sequence as SequenceABC
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -24,6 +28,7 @@ from .. import parallel, resolve_device
 from ..fields import limb
 from ..fields.host import Fp
 from ..fields.spec import FieldSpec
+from ..kernels import brakedown as kbrakedown
 from ..ops.keccak_batch import keccak256_many
 from ..parallel import sharded
 from ..poly.multilinear import MLPoly, eq_xy
@@ -46,11 +51,26 @@ class BrakedownParams:
         return self.code.spec
 
 
+class MerkleNodes(SequenceABC):
+    """Every node of a commitment's Merkle tree but the root, leaves first,
+    level after level, held as one host array uint8[n, 32]; node i is read
+    as its 32 bytes."""
+
+    def __init__(self, nodes: np.ndarray):
+        self.nodes = nodes
+
+    def __len__(self) -> int:
+        return len(self.nodes)
+
+    def __getitem__(self, i: int) -> bytes:
+        return self.nodes[i].tobytes()
+
+
 @dataclasses.dataclass
 class BrakedownCommitment:
     root: bytes
     rows: np.ndarray | None = None  # canonical limbs [num_rows, cw, 8] int32, on the host
-    intermediate_hashes: List[bytes] | None = None
+    intermediate_hashes: MerkleNodes | None = None
 
 
 class MultilinearBrakedown:
@@ -86,23 +106,34 @@ class MultilinearBrakedown:
     # ----------------------------------------------------------------- commit
     def commit(self, pp: BrakedownParams, poly: MLPoly) -> BrakedownCommitment:
         assert poly.num_vars == pp.num_vars
-        spec = pp.spec
+        k, dev = pp.num_vars, poly.evals.device
         code = pp.code
-        matrix = poly.evals.reshape(pp.num_rows, code.row_len, limb.L)
-        # rows encode independently: under a mesh each rank encodes its block
-        # of rows (reference brakedown.py:88-94), and the columns are hashed
-        # on every rank once the encoded rows are gathered
-        block = parallel.row_block(pp.num_rows)
-        if block is None:
-            encoded = code.encode(matrix)
-        else:
-            block.mesh.taken["brakedown_commit"] += 1
-            encoded = sharded.all_gather_cat(block.mesh, code.encode(block.take(matrix)), 0)
-        canon = limb.from_mont(spec, encoded)  # [num_rows, cw, 8]
-        hashes, root = _merklize_device(canon, code.codeword_len)
-        rows = canon.cpu().numpy()
-        timer.device_read(canon)
-        return BrakedownCommitment(root=root, rows=rows, intermediate_hashes=hashes)
+        # stages, not spans that synchronise: a commit's time on the card is
+        # read from their events
+        with timer.span(f"brakedown_commit-{k}", sync=False, device=dev, request=True):
+            matrix = poly.evals.reshape(pp.num_rows, code.row_len, limb.L)
+            # rows encode independently: under a mesh each rank encodes its
+            # block of rows (reference brakedown.py:88-94), and the columns
+            # are hashed on every rank once the encoded rows are gathered
+            block = parallel.row_block(pp.num_rows)
+            with timer.span(f"brakedown_encode-{k}", sync=False, device=dev):
+                if block is None:
+                    columns = code.encode_columns(matrix)  # [cw, num_rows, 8]
+                else:
+                    block.mesh.taken["brakedown_commit"] += 1
+                    columns = sharded.all_gather_cat(
+                        block.mesh, code.encode_columns(block.take(matrix)), 1)
+            with timer.span(f"brakedown_from_mont-{k}", sync=False, device=dev):
+                canon = limb.from_mont(pp.spec, columns)
+            del columns
+            with timer.span(f"brakedown_columns-{k}", sync=False, device=dev):
+                nodes = _column_hashes(canon)
+            with timer.span(f"brakedown_merkle-{k}", sync=False, device=dev):
+                _merkle_levels(nodes)
+            with timer.span(f"brakedown_readback-{k}", sync=False, device=dev):
+                rows, tree = _read_back(canon, nodes)
+        return BrakedownCommitment(root=tree[-1].tobytes(), rows=rows.transpose(1, 0, 2),
+                                   intermediate_hashes=MerkleNodes(tree[:-1]))
 
     def batch_commit(self, pp, polys):
         return [self.commit(pp, p) for p in polys]
@@ -294,23 +325,62 @@ def _squeeze_challenge_idx(transcript: Keccak256Transcript, cap: int) -> int:
     return int.from_bytes(challenge.to_repr()[:4], "little") % cap
 
 
-def _merklize_device(canon: torch.Tensor, codeword_len: int):
-    """Column hashes and every Merkle level on the device
-    (brakedown.rs:152-190, the reference's _merklize_device): column j's
-    message is the rows' 32-byte little-endian canonical values, row after
-    row; the leaves are padded to 2^depth with zero hashes, and each level
-    hashes the 64-byte pairs of the one below.  Returns (every node but the
-    root, level after level, as bytes; the root)."""
-    rows, cw, _ = canon.shape
-    words = (canon.to(torch.int64) & keccak_device.M32).permute(0, 2, 1).reshape(rows * 8, cw)
-    cur = keccak_device.keccak256_fixed(words, 32 * rows)  # [8, cw]
-    depth = (codeword_len - 1).bit_length()
-    width = 1 << depth
-    if cw < width:  # ZERO_HASH leaves: all-zero words
-        cur = torch.cat([cur, torch.zeros((8, width - cw), dtype=cur.dtype, device=cur.device)], 1)
-    levels = [cur]
-    while cur.shape[1] > 1:
-        cur = keccak_device.keccak256_fixed(torch.cat([cur[:, 0::2], cur[:, 1::2]], 0), 64)
-        levels.append(cur)
-    blobs = keccak_device.digests_to_bytes(torch.cat(levels, dim=1))
-    return blobs[:-1], blobs[-1]
+def _column_hashes(canon: torch.Tensor) -> torch.Tensor:
+    """The tree's nodes, int32[2 * width - 1, 8] (kernels/brakedown.py), with
+    the leaves filled: column j's digest, its message the rows' 32-byte
+    little-endian canonical values, row after row (brakedown.rs:152-190, the
+    reference's _merklize_device), then zero hashes up to width, a power of
+    two."""
+    if canon.is_cuda:
+        return kbrakedown.column_hashes_cuda(canon)
+    return _column_hashes_plain(canon)
+
+
+def _column_hashes_plain(canon: torch.Tensor) -> torch.Tensor:
+    """``_column_hashes`` by utils/keccak_device.py, on any device."""
+    cw, rows, _ = canon.shape
+    width = kbrakedown.tree_width(cw)
+    nodes = torch.zeros((2 * width - 1, limb.L), dtype=torch.int32, device=canon.device)
+    words = (canon.to(torch.int64) & keccak_device.M32).reshape(cw, rows * limb.L).T
+    nodes[:cw] = _signed(keccak_device.keccak256_fixed(words, 32 * rows).T)
+    return nodes
+
+
+def _merkle_levels(nodes: torch.Tensor) -> None:
+    """Every level above the leaves, in place: each node the digest of its
+    children's 64 bytes, the root last."""
+    if nodes.is_cuda:
+        kbrakedown.merkle_levels_cuda(nodes)
+    else:
+        _merkle_levels_plain(nodes)
+
+
+def _merkle_levels_plain(nodes: torch.Tensor) -> None:
+    """``_merkle_levels`` by utils/keccak_device.py, on any device."""
+    width, offset = (nodes.shape[0] + 1) // 2, 0
+    while width > 1:
+        words = (nodes[offset:offset + width].to(torch.int64) & keccak_device.M32)
+        digests = keccak_device.keccak256_fixed(words.reshape(width // 2, 16).T, 64)
+        nodes[offset + width:offset + width + width // 2] = _signed(digests.T)
+        offset += width
+        width //= 2
+
+
+def _signed(words: torch.Tensor) -> torch.Tensor:
+    """int64 words below 2^32 as the int32 of the same bits."""
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def _read_back(canon: torch.Tensor, nodes: torch.Tensor):
+    """The canonical codeword [cw, rows, 8] int32 and the nodes uint8[n, 32]
+    on the host.  From the card, one copy each into page-locked buffers of
+    PyTorch's host allocator: a buffer is reused only once the arrays that
+    view it are gone, so no two live commitments share one."""
+    if not canon.is_cuda:
+        return canon.numpy(), nodes.numpy().view(np.uint8)
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (canon, nodes)]
+    for h, t in zip(host, (canon, nodes)):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(canon.device).synchronize()
+    timer.device_read(canon)
+    return host[0].numpy(), host[1].numpy().view(np.uint8)

@@ -6,14 +6,19 @@ plonkish_tpu/pcs/brakedown_code.py).
 
 Spec math (c_n/d_n/openings/dimensions) mirrors
 plonkish_backend/src/util/code/brakedown.rs:128-260 exactly.
-Each sparse-matrix product is a gather, one Montgomery product and a
-``limb.scatter_sum`` over all rows of the commitment matrix at once, and the
-Reed–Solomon base case a Horner evaluation at the points 1..out_len.
+Every section is written in place into one codeword laid out by column
+(``encode_columns``).  On the card each sparse-matrix product is one launch
+of csrc/brakedown.cu over all rows of the commitment matrix at once, and so
+is the Reed–Solomon base case, as a dense matrix of the points 1..out_len's
+powers.  On the CPU, or over a field the kernels are not built for, the
+product is a gather, one Montgomery product and a ``limb.scatter_sum``, and
+the base case a Horner evaluation.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import random
 from typing import List
@@ -22,6 +27,7 @@ import torch
 
 from ..fields import limb
 from ..fields.spec import FieldSpec
+from ..kernels import brakedown as kbrakedown
 
 
 def _ceil(v: float) -> int:
@@ -134,12 +140,35 @@ class SparseMatrixDimension:
     d: int  # nonzeros per row
 
 
-class SparseMatrix:
+class _Matrix:
+    """A linear map of the code, applied to every row of the commitment
+    matrix at once: ``dot`` is one launch of csrc/brakedown.cu over
+    ``by_output`` where the kernels take the batch (kernels/brakedown.py
+    ``takes``), and ``dot_plain`` elsewhere."""
+
+    spec: FieldSpec
+    dimension: "SparseMatrixDimension"
+
+    def dot(self, batch: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+        """batch: [B, n, 8] Montgomery -> out [B, m, 8] (allocated when None,
+        any strides when given), which it returns."""
+        if out is None:
+            out = torch.empty((batch.shape[0], self.dimension.m, limb.L), dtype=torch.int32,
+                              device=batch.device)
+        if kbrakedown.takes(self.spec, batch.device):
+            kbrakedown.dot_cuda(self.spec, self.by_output, batch, out)
+        else:
+            out.copy_(self.dot_plain(batch))
+        return out
+
+
+class SparseMatrix(_Matrix):
     """Random sparse matrix, d distinct nonzero columns per row.
 
     Stored as flat (row, column, coeff) tensors on `device`, drawn from `rng`
     in the reference's order (per row: its sorted columns, then their
-    coefficients); `dot` is a gather, a product and a scatter-add."""
+    coefficients), and where the kernel takes them by output
+    (``by_output``, sorted once on `device` as the matrix is drawn)."""
 
     def __init__(self, dimension: SparseMatrixDimension, spec: FieldSpec,
                  rng: random.Random, device="cpu"):
@@ -157,11 +186,39 @@ class SparseMatrix:
         self.cols = torch.tensor(cols, dtype=torch.int64, device=device)
         self.coeffs = limb.from_canonical_ints(spec, coeffs, device)
         self.spec = spec
+        if kbrakedown.takes(spec, device):
+            self.by_output  # sorted here, once, where the matrix is drawn
 
-    def dot(self, batch: torch.Tensor) -> torch.Tensor:
-        """batch: [B, n, 8] Montgomery -> [B, m, 8]."""
+    @functools.cached_property
+    def by_output(self) -> kbrakedown.ByOutput:
+        d = self.dimension
+        return kbrakedown.by_output(self.rows, self.cols, self.coeffs, d.n, d.m)
+
+    def dot_plain(self, batch: torch.Tensor) -> torch.Tensor:
+        """``dot`` as a gather, a product and a scatter-add, on any device."""
         terms = limb.mont_mul(self.spec, batch[:, self.rows], self.coeffs)
         return limb.scatter_sum(self.spec, terms, self.cols, self.dimension.m)
+
+
+class ReedSolomon(_Matrix):
+    """The code's base case (brakedown.rs:324-330): output j = Σ_i input_i ·
+    (j + 1)^i, n inputs to m outputs.  The kernel takes it as the dense
+    matrix of those powers; ``dot_plain`` is a Horner evaluation."""
+
+    def __init__(self, spec: FieldSpec, n: int, m: int, device="cpu"):
+        self.spec = spec
+        self.dimension = SparseMatrixDimension(n, m, m)
+        self.device = device
+        if kbrakedown.takes(spec, device):
+            self.by_output  # built here, once
+
+    @functools.cached_property
+    def by_output(self) -> kbrakedown.ByOutput:
+        d = self.dimension
+        return kbrakedown.dense(_vandermonde(self.spec, d.n, d.m, self.device))
+
+    def dot_plain(self, batch: torch.Tensor) -> torch.Tensor:
+        return _reed_solomon(self.spec, batch, self.dimension.m)
 
 
 class Brakedown:
@@ -178,6 +235,7 @@ class Brakedown:
         self.num_proximity_testing = num_proximity_testing
         self.a = a
         self.b = b
+        self.rs = ReedSolomon(spec, a[-1].dimension.m, b[-1].dimension.n, a[-1].cols.device)
 
     @classmethod
     def new_multilinear(cls, spec: FieldSpec, bspec: BrakedownSpec,
@@ -209,30 +267,55 @@ class Brakedown:
         )
 
     def encode(self, batch: torch.Tensor) -> torch.Tensor:
-        """Encode rows: [B, row_len, 8] -> [B, codeword_len, 8] Montgomery.
+        """Encode rows: [B, row_len, 8] -> [B, codeword_len, 8] Montgomery, a
+        view of ``encode_columns``."""
+        return self.encode_columns(batch).transpose(0, 1)
+
+    def encode_single(self, row: torch.Tensor) -> torch.Tensor:
+        return self.encode(row[None])[0]
+
+    def encode_columns(self, batch: torch.Tensor, dot=None) -> torch.Tensor:
+        """Encode rows by column: [B, row_len, 8] -> [codeword_len, B, 8]
+        Montgomery, contiguous, so that column j is its B values in a row.
 
         The section layout of brakedown.rs:88-125: input, A-chain outputs,
-        RS base output, B-chain outputs, batched over all rows."""
-        sections = [batch]
-        cur = batch
+        RS base output, B-chain outputs.  The codeword is allocated once and
+        each matrix writes its section in place, reading its input section
+        where it lies: ``dot(matrix, x, out)``, by default the matrix's own
+        ``dot``."""
+        if dot is None:
+            dot = _Matrix.dot
+        rows = batch.shape[0]
+        out = torch.empty((self.codeword_len, rows, limb.L), dtype=torch.int32,
+                          device=batch.device)
+        flat = out.transpose(0, 1)  # [B, codeword_len, 8], the layout of encode
+        lo, hi = 0, self.row_len  # the section the next A matrix reads
+        flat[:, lo:hi] = batch
         for a in self.a[:-1]:  # downward A chain
-            cur = a.dot(cur)
-            sections.append(cur)
-        tmp = self.a[-1].dot(cur)
-        sections.append(_reed_solomon(self.spec, tmp, self.b[-1].dimension.n))
-        flat = torch.cat(sections, dim=1)
-        # upward B chain, each consuming a slice of the codeword built so far
+            m = a.dimension.m
+            dot(a, flat[:, lo:hi], flat[:, hi:hi + m])
+            lo, hi = hi, hi + m
+        tmp = torch.empty((rows, self.a[-1].dimension.m, limb.L), dtype=torch.int32,
+                          device=batch.device)
+        dot(self.a[-1], flat[:, lo:hi], tmp)
+        end = hi + self.rs.dimension.m
+        dot(self.rs, tmp, flat[:, hi:end])
+        # upward B chain, each reading a slice of the codeword written so far
         a_dims = [m.dimension for m in self.a]
         input_offset = sum(d.n for d in a_dims[:-1]) + a_dims[-1].n + a_dims[-1].m
         for a_dim, b in zip(reversed(a_dims), reversed(self.b)):
             input_offset -= a_dim.m
-            chunk = flat[:, input_offset: input_offset + b.dimension.n]
-            flat = torch.cat([flat, b.dot(chunk)], dim=1)
-        assert flat.shape[1] == self.codeword_len, (flat.shape, self.codeword_len)
-        return flat
+            n, m = b.dimension.n, b.dimension.m
+            dot(b, flat[:, input_offset:input_offset + n], flat[:, end:end + m])
+            end += m
+        assert end == self.codeword_len, (end, self.codeword_len)
+        return out
 
-    def encode_single(self, row: torch.Tensor) -> torch.Tensor:
-        return self.encode(row[None])[0]
+
+def _vandermonde(spec: FieldSpec, n: int, out_len: int, device) -> torch.Tensor:
+    """The base case's matrix: (j + 1)^i at [j, i], Montgomery int32[out_len, n, 8]."""
+    powers = [pow(j + 1, i, spec.p) for j in range(out_len) for i in range(n)]
+    return limb.from_canonical_ints(spec, powers, device).reshape(out_len, n, limb.L)
 
 
 def _reed_solomon(spec: FieldSpec, inputs: torch.Tensor, out_len: int) -> torch.Tensor:

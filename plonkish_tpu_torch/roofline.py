@@ -235,6 +235,33 @@ def convert_work(n: int) -> Tuple[int, int]:
     return n * FE_MUL_IMAD, n * 2 * FE_BYTES
 
 
+KECCAK_F_OPS = 4320  # 32-bit operations a keccak-f[1600], three-input logic and funnel shifts
+KECCAK_RATE_BYTES = 136
+
+
+def brakedown_encode_work(code, rows: int) -> Tuple[int, int]:
+    """Brakedown's encoding of `rows` rows (csrc/brakedown.cu): one product
+    a row for every nonzero of both chains and every entry of the base
+    case's matrix; the input, the codeword and the matrices (a coefficient
+    and a 4-byte index a nonzero) each once."""
+    nonzeros = sum(m.dimension.n * m.dimension.d for m in code.a + code.b)
+    base = code.rs.dimension.n * code.rs.dimension.m
+    nbytes = (rows * (code.row_len + code.codeword_len) + base) * FE_BYTES + nonzeros * (
+        FE_BYTES + 4)
+    return rows * (nonzeros + base) * FE_MUL_IMAD, nbytes
+
+
+def merkle_work(codeword_len: int, rows: int) -> Tuple[int, int]:
+    """Brakedown's column hashes and Merkle tree (csrc/merkle.cu): each
+    column's 32 * rows bytes in 136-byte blocks, each node with a real leaf
+    under it, KECCAK_F_OPS a permutation at the multiply-add rate; the
+    canonical codeword read once."""
+    depth = (codeword_len - 1).bit_length()
+    nodes = sum(-(-codeword_len // (1 << level)) for level in range(1, depth + 1))
+    permutations = codeword_len * (32 * rows // KECCAK_RATE_BYTES + 1) + nodes
+    return permutations * KECCAK_F_OPS, rows * codeword_len * FE_BYTES
+
+
 def chain_work(n: int, chain: int) -> Tuple[int, int]:
     """K5: `chain` products per element; a and b read, out written."""
     return n * chain * FE_MUL_IMAD, n * 3 * FE_BYTES

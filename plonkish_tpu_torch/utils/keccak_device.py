@@ -2,9 +2,10 @@
 ``keccak256_fixed`` of plonkish_tpu/piop/fiat_shamir.py:116-185).
 
 Brakedown's commit hashes every column of the encoded matrix and every level
-of its Merkle tree on the device, one message per tensor column.  The
-reference does this in XLA, not in a Pallas kernel, and so does the port: in
-plain torch, over lanes of 64 bits held as two 32-bit halves in int64
+of its Merkle tree, one message per tensor column.  The reference does this
+in XLA, not in a Pallas kernel; on the card the port runs csrc/merkle.cu,
+and this is its plain version, for the CPU: plain torch, over lanes of 64
+bits held as two 32-bit halves in int64
 tensors (so that every shift is exact and no sign bit is ever set), with the
 whole batch of messages absorbed together, one Keccak-f[1600] per 136-byte
 block.  The state is ``[25, N]``, flat lane index x + 5y.

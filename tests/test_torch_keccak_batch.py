@@ -62,11 +62,13 @@ def test_build_is_cached_in_the_build_directory():
 
 def test_merkle_tree_matches_reference():
     """Column hashes and every level, padded with zero hashes, as the
-    reference's host _merklize computes them."""
+    reference's host _merklize computes them: the port's tree of nodes
+    (_column_hashes, _merkle_levels) read as the commitment reads it."""
+    import numpy as np
     from plonkish_tpu.pcs.brakedown import _column_bytes, _hash_many, _merklize
     from plonkish_tpu_torch.fields import limb
     from plonkish_tpu_torch.fields.spec import BN254_FR
-    from plonkish_tpu_torch.pcs.brakedown import _merklize_device
+    from plonkish_tpu_torch.pcs.brakedown import MerkleNodes, _column_hashes, _merkle_levels
 
     rows, cw = 3, 37
     rng = random.Random(5)
@@ -74,4 +76,7 @@ def test_merkle_tree_matches_reference():
     canon = limb.from_ints(vals).reshape(rows, cw, 8)
     digits = torch.stack([canon & 0xFFFF, (canon >> 16) & 0xFFFF], -1).reshape(rows, cw, 16)
     want = _merklize(cw, _hash_many(_column_bytes(digits.numpy())))
-    assert _merklize_device(canon, cw) == want
+    nodes = _column_hashes(canon.transpose(0, 1).contiguous())
+    _merkle_levels(nodes)
+    tree = nodes.numpy().view(np.uint8)
+    assert (list(MerkleNodes(tree[:-1])), tree[-1].tobytes()) == want
